@@ -1,0 +1,216 @@
+"""Hash partitioning + per-destination edge groups + skip() block metadata.
+
+The layout is the JAX package's (``repro/graph/partition.py``), array for
+array; only the container differs:
+
+* the in-memory state array ``A``: ``degree/vmask/old_ids/gids``, ``(n, P)``,
+* the edge stream organized into ``n`` per-destination groups: group
+  ``(i, k)`` holds shard i's edges whose destination lives on shard k,
+  sorted by source position and padded to ``E_cap`` (a multiple of
+  ``edge_block``), as ``src_pos/dst_pos/eweight`` of shape ``(n, n, E_cap)``,
+* per-block source ranges ``blk_lo/blk_hi`` ``(n, n, n_blocks)``: a block can
+  be skipped iff no vertex in ``[blk_lo, blk_hi]`` is active (§3.2).
+
+Padded edge slots carry ``src_pos = -1``, ``dst_pos = 0`` and weight 0, so
+they are compute-neutral. The host work is numpy; the arrays move to the
+device once, at the end of ``build_partition``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import ClassVar
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.graph.csr import Graph
+from repro_torch.graph.recode import RecodeMap, recode_ids
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def block_ranges(sp_blocks: np.ndarray, P: int) -> tuple[np.ndarray, np.ndarray]:
+    """Per-block [min, max] source range over the trailing axis — the skip()
+    metadata of §3.2. Sentinels (P, -1) mark empty blocks."""
+    valid = sp_blocks >= 0
+    lo = np.where(valid, sp_blocks, P).min(axis=-1).astype(np.int32)
+    hi = np.where(valid, sp_blocks, -1).max(axis=-1).astype(np.int32)
+    return lo, hi
+
+
+@dataclass
+class PartitionedGraph:
+    """Partitioned graph; the leading axis of every tensor is the shard."""
+
+    TENSORS: ClassVar[tuple[str, ...]] = (
+        "degree", "vmask", "old_ids", "gids", "src_pos", "dst_pos",
+        "eweight", "blk_lo", "blk_hi",
+    )
+
+    n_shards: int
+    n_vertices: int
+    n_edges: int
+    P: int  # padded vertices per shard
+    E_cap: int  # padded edges per group
+    edge_block: int
+    n_blocks: int
+
+    degree: torch.Tensor  # (n, P) int32 — global out-degree d(v)
+    vmask: torch.Tensor  # (n, P) bool — position holds a real vertex
+    old_ids: torch.Tensor  # (n, P) int64 — original ids, -1 for holes
+    gids: torch.Tensor  # (n, P) int64 — recoded global id, -1 for holes
+    src_pos: torch.Tensor  # (n, n, E_cap) int32, -1 for padding
+    dst_pos: torch.Tensor  # (n, n, E_cap) int32
+    eweight: torch.Tensor  # (n, n, E_cap) float32
+    blk_lo: torch.Tensor  # (n, n, n_blocks) int32 — min src_pos (P if empty)
+    blk_hi: torch.Tensor  # (n, n, n_blocks) int32 — max src_pos (-1 if empty)
+
+    @property
+    def device(self) -> torch.device:
+        return self.degree.device
+
+    def to(self, device) -> "PartitionedGraph":
+        return dataclasses.replace(
+            self, **{f: getattr(self, f).to(device) for f in self.TENSORS}
+        )
+
+    @property
+    def shape_summary(self) -> str:
+        return (
+            f"PartitionedGraph(n={self.n_shards}, |V|={self.n_vertices}, "
+            f"|E|={self.n_edges}, P={self.P}, E_cap={self.E_cap}, "
+            f"blocks={self.n_blocks}x{self.edge_block})"
+        )
+
+
+def build_partition(
+    n: int,
+    src_g: np.ndarray,  # (E,) edge sources, global recoded ids
+    dst_g: np.ndarray,  # (E,) edge destinations, global recoded ids
+    weight: np.ndarray,  # (E,)
+    gids_real: np.ndarray,  # (V,) all real vertex global ids
+    old_ids_real: np.ndarray,  # (V,) their original ids
+    edge_block: int = 512,
+    vertex_pad: int = 8,
+    device=None,
+) -> PartitionedGraph:
+    """Assemble the layout from global-recoded-id edge/vertex arrays
+    (shard = g mod n, pos = g // n)."""
+    device = resolve_device(device)
+    P = max(_round_up(int(gids_real.max()) // n + 1 if gids_real.size else 1,
+                      vertex_pad), vertex_pad)
+    src_shard, src_p = src_g % n, src_g // n
+    dst_shard, dst_p = dst_g % n, dst_g // n
+
+    deg_global = np.bincount(src_g, minlength=n * P).astype(np.int32)
+
+    # group edges by (src_shard, dst_shard), sort each group by src position
+    group_key = src_shard * n + dst_shard
+    E = src_g.shape[0]
+    if n * n * P * max(E, 1) < 2**63:
+        # stable sort by (group, src position) as one unstable sort of keys
+        # that carry the edge's index in their low digits
+        packed = (group_key * P + src_p) * E + np.arange(E, dtype=np.int64)
+        order = np.sort(packed) % max(E, 1)
+        del packed
+    else:
+        order = np.lexsort((src_p, group_key))
+    gk, sp, dp, w = group_key[order], src_p[order], dst_p[order], weight[order]
+    del order, group_key, src_shard, src_p, dst_shard, dst_p
+    counts = np.bincount(gk, minlength=n * n)
+    E_cap = max(_round_up(int(counts.max()) if counts.size else 0, edge_block),
+                edge_block)
+    n_blocks = E_cap // edge_block
+
+    src_pos = np.full((n, n, E_cap), -1, dtype=np.int32)
+    dst_pos = np.zeros((n, n, E_cap), dtype=np.int32)
+    eweight = np.zeros((n, n, E_cap), dtype=np.float32)
+    offs = np.zeros(n * n + 1, dtype=np.int64)
+    np.cumsum(counts, out=offs[1:])
+    for i in range(n):
+        for k in range(n):
+            a, b = offs[i * n + k], offs[i * n + k + 1]
+            c = b - a
+            src_pos[i, k, :c] = sp[a:b]
+            dst_pos[i, k, :c] = dp[a:b]
+            eweight[i, k, :c] = w[a:b]
+    del gk, sp, dp, w
+
+    blk_lo, blk_hi = block_ranges(
+        src_pos.reshape(n, n, n_blocks, edge_block), P
+    )
+
+    degree = np.zeros((n, P), dtype=np.int32)
+    vmask = np.zeros((n, P), dtype=bool)
+    old_ids = np.full((n, P), -1, dtype=np.int64)
+    gid_arr = np.full((n, P), -1, dtype=np.int64)
+    degree[gids_real % n, gids_real // n] = deg_global[gids_real]
+    vmask[gids_real % n, gids_real // n] = True
+    old_ids[gids_real % n, gids_real // n] = old_ids_real
+    gid_arr[gids_real % n, gids_real // n] = gids_real
+
+    t = lambda a: torch.from_numpy(a).to(device)
+    return PartitionedGraph(
+        n_shards=n,
+        n_vertices=int(gids_real.shape[0]),
+        n_edges=int(src_g.shape[0]),
+        P=P,
+        E_cap=E_cap,
+        edge_block=edge_block,
+        n_blocks=n_blocks,
+        degree=t(degree),
+        vmask=t(vmask),
+        old_ids=t(old_ids),
+        gids=t(gid_arr),
+        src_pos=t(src_pos),
+        dst_pos=t(dst_pos),
+        eweight=t(eweight),
+        blk_lo=t(blk_lo),
+        blk_hi=t(blk_hi),
+    )
+
+
+def partition_graph(
+    g: Graph,
+    n_shards: int,
+    edge_block: int = 512,
+    vertex_pad: int = 8,
+    recode: RecodeMap | None = None,
+    device=None,
+) -> tuple[PartitionedGraph, RecodeMap]:
+    """Preprocess on the host (the paper's loading + ID-recoding pass) and
+    place the partition on ``device`` (default: CUDA)."""
+    device = resolve_device(device)
+    rmap = recode if recode is not None else recode_ids(g.vertex_ids, n_shards)
+    pg = build_partition(
+        n_shards,
+        rmap.to_new(g.src),
+        rmap.to_new(g.dst),
+        g.weight,
+        rmap.new_for_old_sorted,
+        rmap.old_sorted,
+        edge_block=edge_block,
+        vertex_pad=vertex_pad,
+        device=device,
+    )
+    return pg, rmap
+
+
+def drop_edges(pg: PartitionedGraph) -> PartitionedGraph:
+    """Vertex-only view of a partition: the O(|V|/n) state array survives,
+    the O(|E|) edge groups become zero-length placeholders. The static
+    geometry still describes the dropped layout."""
+    n, dev = pg.n_shards, pg.device
+    return dataclasses.replace(
+        pg,
+        src_pos=torch.full((n, n, 0), -1, dtype=torch.int32, device=dev),
+        dst_pos=torch.zeros((n, n, 0), dtype=torch.int32, device=dev),
+        eweight=torch.zeros((n, n, 0), dtype=torch.float32, device=dev),
+        blk_lo=torch.zeros((n, n, 0), dtype=torch.int32, device=dev),
+        blk_hi=torch.zeros((n, n, 0), dtype=torch.int32, device=dev),
+    )
