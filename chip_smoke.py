@@ -19,7 +19,10 @@ Phases, each of which ends the run non-zero on a failure:
    PageRank (10 supersteps), Hash-Min, SSSP and BFS to quiescence, with the
    ``kernel`` backend and then the ``torch`` backend; the two must agree
    (PageRank within 1e-5 of its largest value and within rtol 1e-4 at
-   every vertex, the rest exactly, superstep by superstep).
+   every vertex, the rest exactly, superstep by superstep);
+5. two supersteps of the main path under ``torch.profiler``: PageRank's
+   third (dense) and Hash-Min's fifth (a small frontier), each with its
+   ten costliest device ops and the card's idle share.
 
 It prints the launch counts of the ``kernel`` run, and the per-kernel JSON
 line and the device line last. It needs a CUDA device and the CUDA toolkit,
@@ -61,21 +64,49 @@ def check(ok: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn()``, after warm-up."""
+def host_launch_ms(fn, k: int = 20) -> float:
+    """Host wall clock of ``k`` back-to-back calls of ``fn()`` with no sync,
+    over k: what a launch costs the host (hidden on the main path only
+    while the card is busy)."""
     import torch
 
-    for _ in range(warmup):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(k):
         fn()
+    dt = (time.perf_counter() - t0) / k
+    torch.cuda.synchronize()
+    return dt * 1e3
+
+
+def time_ms(fn, reps: int = 7, budget_ms: float = 20.0) -> float:
+    """Device time of one ``fn()``: the median over ``reps`` of the CUDA-event
+    time of k back-to-back calls, over k. A sleep kernel ahead of the start
+    event holds the card while the host enqueues the k calls, so the events
+    bracket device work alone, not the host's launch time. k fills about
+    ``budget_ms`` of device time (at most 50)."""
+    import torch
+
+    fn()  # warm-up
+    launch = host_launch_ms(fn, 3)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    k = max(1, min(50, int(budget_ms / max(start.elapsed_time(end), 1e-3))))
+    # ~2 GHz clock: hold the card for twice the host's enqueue time
+    cycles = int(2 * k * launch * 1e-3 * 2e9) + 100_000
     times = []
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
         start.record()
-        fn()
+        for _ in range(k):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / k)
     times.sort()
     return times[len(times) // 2]
 
@@ -149,15 +180,35 @@ DENSITIES = (0.0, 0.02, 1.0)
 STATE_BYTES = {"div_deg": 9, "add_w": 5, "add_1": 5, "copy": 5, "deg": 5}
 
 
+def kept_sources(sp, active, dest, ids, n_keep) -> tuple[int, int]:
+    """Distinct sources that the kept slots of one ring round name, and how
+    many of them are active, summed over the shards."""
+    import torch
+
+    n, P = active.shape
+    ar = torch.arange(n, device=sp.device)[:, None]
+    live = (torch.arange(ids.shape[1], device=sp.device)[None]
+            < n_keep[:, None])[..., None]
+    s = sp[ar, dest.long()[:, None], ids.long()]  # (n, NB, BLK)
+    s = torch.where(live & (s >= 0), s, P).reshape(n, -1).long()
+    named = torch.zeros((n, P + 1), dtype=torch.bool, device=sp.device)
+    named.scatter_(1, s, True)
+    named = named[:, :P]
+    return int(named.sum()), int((named & active).sum())
+
+
 def edge_combine_work(kind: str, n: int, P: int, kept_slots: int,
-                      kept_blocks: int, msgs: int) -> tuple[float, float]:
+                      kept_blocks: int, msgs: int, sources: int,
+                      active_sources: int) -> tuple[float, float]:
     """(bytes, operations) that one launch must move and do: sp of every
     kept slot; dp (and w for add_w) of each edge whose source is active,
-    i.e. of each message; the source state once; A_s and cnt written once;
-    the kept block ids, dest and n_keep. Each message takes a message op, a
-    combine and a count."""
+    i.e. of each message; the active flag of each source a kept slot names
+    and the rest of the kind's state of each active one, once; A_s and cnt
+    written once; the kept block ids, dest and n_keep. Each message takes a
+    message op, a combine and a count."""
     nbytes = (4 * kept_slots + (8 if kind == "add_w" else 4) * msgs
-              + (STATE_BYTES[kind] + 8) * n * P + 4 * kept_blocks + 8 * n)
+              + sources + (STATE_BYTES[kind] - 1) * active_sources
+              + 8 * n * P + 4 * kept_blocks + 8 * n)
     return nbytes, 3 * msgs
 
 
@@ -210,12 +261,17 @@ def phase_kernels(pg, seed: int) -> dict:
             worst = max(worst, err)
             kept_blocks = int(n_keep.sum())
             msgs = int(c_k.sum())
+            srcs, act_srcs = kept_sources(sp, active, dest, ids, n_keep)
             bound_ms, bound_by = bound(*edge_combine_work(
-                kind, n, P, kept_blocks * B, kept_blocks, msgs))
+                kind, n, P, kept_blocks * B, kept_blocks, msgs, srcs,
+                act_srcs))
             row = dict(kind=kind, combiner=comb, dtype=vt, density=dens,
                        kept_slots=kept_blocks * B, messages=msgs,
+                       sources=srcs, active_sources=act_srcs,
                        max_abs_err=err,
                        ms=time_ms(lambda: edge_combine(*args, **kw)),
+                       launch_ms=host_launch_ms(
+                           lambda: edge_combine(*args, **kw)),
                        plain_ms=time_ms(lambda: edge_combine_plain(*args, **kw)),
                        bound_ms=bound_ms, bound_by=bound_by)
             rows.append(row)
@@ -262,9 +318,12 @@ def phase_kernels(pg, seed: int) -> dict:
         bound_ms, bound_by = bound(24 * n * P, 2 * n * P)
         row = dict(combiner=comb, dtype=vt, n_P=n * P,
                    ms=time_ms(lambda: digest(A, C, R, RC, combiner=comb)),
+                   launch_ms=host_launch_ms(
+                       lambda: digest(A, C, R, RC, combiner=comb)),
                    plain_ms=time_ms(lambda: digest_plain(A, C, R, RC,
                                                          combiner=comb)),
                    library_ms=time_ms(library),
+                   library_launch_ms=host_launch_ms(library),
                    bound_ms=bound_ms, bound_by=bound_by)
         dg_rows.append(row)
         print("digest " + json.dumps(row))
@@ -434,6 +493,60 @@ def phase_main(pg, src: int) -> dict:
     return launches
 
 
+def _busy_ms(intervals) -> float:
+    """Length of the union of (start, end) intervals, in their unit / 1e3."""
+    busy, reach = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > reach:
+            busy += b - max(a, reach)
+            reach = b
+    return busy / 1e3
+
+
+def phase_profile(pg, name: str, program, steps_before: int,
+                  top: int = 10) -> dict:
+    """Superstep ``steps_before`` of ``program`` on the main path (kernel
+    backend) under ``torch.profiler``: the ``top`` device ops by total time,
+    each with its count, and the share of the superstep's wall time the
+    card was idle."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import EngineConfig, GraphDEngine
+
+    eng = GraphDEngine(pg, program, EngineConfig(backend="kernel"))
+    values, active = eng.init()
+    for s in range(steps_before):
+        values, active, _ = eng.step(values, active, s)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, st = eng.step(values, active, steps_before)
+        float(st.n_msgs)  # the superstep's one host sync
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(bool(dev), "profile: the trace holds no device events")
+    ops = {}
+    for e in dev:
+        c, t = ops.get(e.name, (0, 0.0))
+        ops[e.name] = (c + 1, t + (e.time_range.end - e.time_range.start))
+    busy = _busy_ms([(e.time_range.start, e.time_range.end) for e in dev])
+    span = (max(e.time_range.end for e in dev)
+            - min(e.time_range.start for e in dev)) / 1e3
+    total = sum(t for _, t in ops.values()) / 1e3
+    print(f"profile: {name} superstep {steps_before} (kernel backend): wall "
+          f"{wall_ms:.3f} ms (profiler on), device busy {busy:.3f} ms, first "
+          f"to last device op {span:.3f} ms, device idle "
+          f"{1 - busy / wall_ms:.4f} of the wall time; {len(dev)} device ops, "
+          f"{total:.3f} ms in all")
+    rows = sorted(ops.items(), key=lambda kv: -kv[1][1])[:top]
+    for op, (count, t) in rows:
+        print(f"profile:   {t / 1e3:8.3f} ms  x{count:3d}  {op[:110]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy, idle=1 - busy / wall_ms)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=24)
@@ -474,6 +587,11 @@ def main(argv=None) -> int:
     kernels = phase_kernels(pg, args.seed)
     phase_small(args.seed)
     launches = phase_main(pg, src)
+    # the dense path, and a late Hash-Min superstep: a small frontier
+    from repro_torch.core import HashMin, PageRank
+
+    phase_profile(pg, "pagerank", PageRank(10), 2)
+    phase_profile(pg, "hashmin", HashMin(), 4)
     for name, k in kernels.items():
         k["launches"] = launches[name]
     print(f"total {time.perf_counter() - t_start:.1f} s; card {built['power']}")

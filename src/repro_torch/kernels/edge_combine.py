@@ -18,16 +18,23 @@ blocks in place: ``src_pos/dst_pos/eweight`` viewed as ``(n, n, NB, BLK)``.
 Bound on the card: bytes. Per kept edge slot it reads sp (4 B); per edge
 whose source is active it gathers the source's state and reads dp (4 B),
 and w (4 B) for ``add_w``; per vertex it writes 8 B (A_s, cnt); it does a
-few operations per edge, far under the card's compute. Design
-(``csrc/edge_combine.cu``): one CTA per (shard, kept-block slot); a slot
-past ``n_keep[i]`` returns at once, so skip() costs no host sync; the edges
-of a block are read coalesced, the source state is gathered natively, and
-each message lands with a global atomic into A_s, which the wrapper
-pre-fills with the identity. Float min/max use the ordered-int trick; float
-sum uses ``atomicAdd``, whose order changes from run to run, so float sums
-are not bit-reproducible (PageRank holds to 1e-5, as the JAX package's
-kernel backend does against its plain one). Staging a window accumulator in
-shared memory and a persistent grid are later work.
+few operations per edge, far under the card's compute. What holds it back
+in practice is the number of scattered atomics: the L2 takes each as its
+own transaction. Design (``csrc/edge_combine.cu``): a persistent grid
+walks a work list of every shard's kept blocks, which each CTA builds from
+the ``n_keep`` prefix on the card, so skip() costs no host sync and a
+sparse frontier no grid of returning CTAs. Float sums may take a paired
+path (``pair_counts``: only where ``E_cap`` is below 2^24, so a count
+stays exact in float32): the message and its count land as one ``float2``
+atomicAdd into an interleaved buffer, half the atomics, and a split pass
+writes A_s and the int32 counts. The split costs 16 B per vertex slot, so
+the card takes the path only for a launch whose active sources promise
+many messages. Other combines take an atomic on A_s and one on cnt; float
+min/max use the ordered-int trick. The C entry point also pre-fills the
+outputs, so a call is one ctypes call. Float sums land in the order the
+atomics reach L2, which changes from run to run, so they are not
+bit-reproducible (PageRank holds to 1e-5, as the JAX package's kernel
+backend does against its plain one); min, max, int32 and counts are exact.
 
 Two TPU workarounds are not carried over: values are not clamped from ±inf
 to ±1e30 (no one-hot product, so unreached SSSP/BFS vertices stay ``inf``),
@@ -55,6 +62,15 @@ def identity(combiner: str, dtype: torch.dtype):
     if dtype == torch.int32:
         return {"sum": 0, "min": 2**31 - 1, "max": -(2**31)}[combiner]
     return {"sum": 0.0, "min": float("inf"), "max": float("-inf")}[combiner]
+
+
+def pair_counts(dtype: torch.dtype, combiner: str, E_cap: int) -> bool:
+    """Whether a launch may take the paired path, which carries each count
+    as a float32 beside its message: float32 sums only, and only where a
+    count stays exact in float32, i.e. below 2^24. No destination of a group
+    receives more than ``E_cap`` messages, so the shape decides; the card
+    then takes the path for a launch with many active sources."""
+    return dtype == torch.float32 and combiner == "sum" and E_cap < 2**24
 
 
 def _message(kind: str, vals, degs, w):
@@ -115,10 +131,10 @@ def edge_combine_plain(values, degree, active, sp, dp, w, dest, blk_ids,
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load("edge_combine")
-    ptrs = [ctypes.c_void_p] * 11
+    ptrs = [ctypes.c_void_p] * 13
     ints = [ctypes.c_int] * 4
-    lib.edge_combine_f32.argtypes = ptrs + ints + [ctypes.c_int, ctypes.c_int,
-                                                   ctypes.c_void_p]
+    lib.edge_combine_f32.argtypes = ptrs + ints + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
     lib.edge_combine_i32.argtypes = ptrs + ints + [ctypes.c_int,
                                                    ctypes.c_void_p]
     lib.edge_combine_f32.restype = lib.edge_combine_i32.restype = ctypes.c_int
@@ -148,11 +164,19 @@ def _launch(values, degree, active, sp, dp, w, dest, blk_ids, n_keep,
             n_keep.shape != (n,) or degree.shape != (n, P) or \
             active.shape != (n, P):
         raise ValueError("edge_combine: inconsistent shapes")
-    e0 = identity(combiner, values.dtype)
-    out = torch.full((n, P), e0, dtype=values.dtype, device=values.device)
-    cnt = torch.zeros((n, P), dtype=torch.int32, device=values.device)
+    # the C call pre-fills the outputs (or the pairs) itself
+    out = torch.empty((n, P), dtype=values.dtype, device=values.device)
+    cnt = torch.empty((n, P), dtype=torch.int32, device=values.device)
+    pair = pair_counts(values.dtype, combiner, NB * BLK)
     ptrs = [t.data_ptr() for t in (values, degree, active, sp, dp, w, dest,
                                    blk_ids, n_keep, out, cnt)]
+    if pair:  # scratch: the pairs and the count of active sources
+        pairs = torch.empty((n, P, 2), dtype=torch.float32,
+                            device=values.device)
+        count = torch.empty(1, dtype=torch.int32, device=values.device)
+        ptrs += [pairs.data_ptr(), count.data_ptr()]
+    else:
+        ptrs += [None, None]
     stream = torch.cuda.current_stream(values.device).cuda_stream
     lib = _lib()
     comb = COMBINERS.index(combiner)
@@ -160,7 +184,8 @@ def _launch(values, degree, active, sp, dp, w, dest, blk_ids, n_keep,
         rc = lib.edge_combine_i32(*ptrs, n, P, NB, BLK, comb, stream)
     else:
         rc = lib.edge_combine_f32(*ptrs, n, P, NB, BLK,
-                                  MSG_KINDS.index(msg_kind), comb, stream)
+                                  MSG_KINDS.index(msg_kind), comb, int(pair),
+                                  stream)
     if rc != 0:
         raise RuntimeError(f"edge_combine launch failed ({rc}): "
                            f"{lib.edge_combine_error_string(rc).decode()}")

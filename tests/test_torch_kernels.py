@@ -20,7 +20,9 @@ from repro.kernels.ref import digest_ref as jax_digest_ref
 from repro.kernels.ref import edge_combine_ref as jax_edge_combine_ref
 from repro_torch.kernels import ops
 from repro_torch.kernels.digest import digest
-from repro_torch.kernels.edge_combine import COMBINERS, MSG_KINDS, edge_combine
+from repro_torch.kernels.edge_combine import (
+    COMBINERS, MSG_KINDS, edge_combine, pair_counts,
+)
 
 # the shapes here are tiny: one intra-op thread keeps torch's idle
 # OpenMP workers from competing with the other test processes
@@ -229,6 +231,63 @@ def test_plain_path_counts_no_launches(layout):
     digest(torch.zeros(4), torch.zeros(4, dtype=torch.int32), torch.ones(4),
            torch.zeros(4, dtype=torch.int32), combiner="sum")
     assert (edge_combine.launches, digest.launches) == before
+
+
+@pytest.mark.parametrize("density", [0.0, 0.3, 1.0])
+def test_smoke_bound_counts_the_sources_kept_slots_name(density):
+    """chip_smoke prices edge_combine's source state by the distinct sources
+    that the kept slots name, and the active ones among them: a plain loop
+    over the kept blocks gives the same counts."""
+    import importlib.util
+    import os
+
+    from repro_torch.graph import partition_graph as t_partition_graph
+    from repro_torch.graph import rmat_graph as t_rmat_graph
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    pg, _ = t_partition_graph(t_rmat_graph(scale=9, edge_factor=8, seed=2),
+                              4, edge_block=32, device="cpu")
+    n, P, NB, B = pg.n_shards, pg.P, pg.n_blocks, pg.edge_block
+    sp = pg.src_pos.view(n, n, NB, B)
+    rng = np.random.default_rng(7)
+    active = torch.from_numpy(rng.random((n, P)) < density)
+    dest = torch.tensor([2, 0, 3, 1], dtype=torch.int32)
+    ids = torch.from_numpy(np.stack([rng.permutation(NB) for _ in range(n)])
+                           .astype(np.int32))
+    n_keep = torch.tensor([NB, 0, NB // 2, 1], dtype=torch.int32)
+    named = active_named = 0
+    for i in range(n):
+        srcs = set()
+        for j in range(int(n_keep[i])):
+            blk = sp[i, int(dest[i]), int(ids[i, j])]
+            srcs |= {int(x) for x in blk if x >= 0}
+        named += len(srcs)
+        active_named += sum(bool(active[i, x]) for x in srcs)
+    assert smoke.kept_sources(sp, active, dest, ids, n_keep) == (
+        named, active_named)
+
+
+@pytest.mark.parametrize("E_cap", [512, 4_203_008, 2**24 - 512, 2**24,
+                                   2**25])
+def test_pair_counts_only_where_float32_counts_stay_exact(E_cap):
+    """The paired path counts each destination's messages in float32, one
+    at a time, and a destination of a group receives at most E_cap of
+    them: counting up to E_cap must stay exact wherever the path is
+    allowed, which is float sums with E_cap below 2^24 only."""
+    c = np.float32(E_cap - 4)
+    for _ in range(4):  # the last counts toward E_cap
+        c = np.float32(c + np.float32(1))
+    allowed = pair_counts(torch.float32, "sum", E_cap)
+    assert allowed == (E_cap < 2**24)
+    assert int(c) == E_cap or not allowed
+    assert int(c) != E_cap or E_cap <= 2**24
+    for dtype, combiner in [(torch.int32, "sum"), (torch.float32, "min"),
+                            (torch.float32, "max")]:
+        assert not pair_counts(dtype, combiner, E_cap)
 
 
 # --------------------------------------------------------------------------
