@@ -14,15 +14,29 @@ Phases, each of which ends the run non-zero on a failure:
    rtol 1e-5 / atol 1e-6, everything else exact; digest: exact), with times
    and the least time the card could take for the same work;
 3. a small graph run through the port on the card, against a numpy PageRank
-   oracle, a numpy BFS and the port's plain backend on the CPU;
+   oracle, a numpy BFS, numpy oracles of the two combiner-less programs
+   (``basic`` mode) and the port's plain backend on the CPU;
 4. the main path: RMAT (edge factor 16, uniform weights) in 8 shards,
    PageRank (10 supersteps), Hash-Min, SSSP and BFS to quiescence, with the
    ``kernel`` backend and then the ``torch`` backend; the two must agree
    (PageRank within 1e-5 of its largest value and within rtol 1e-4 at
    every vertex, the rest exactly, superstep by superstep);
-5. two supersteps of the main path under ``torch.profiler``: PageRank's
+5. the other in-memory modes (``basic``, ``basic_sc``, ``recoded_compact``)
+   on the same partition: PageRank (5 supersteps) and Hash-Min against the
+   ``recoded`` torch run, and DistinctInLabels / SecondMinLabel under
+   ``basic`` against numpy on a sample of destinations, each with its ms
+   per superstep, edges/s and peak device memory;
+6. recovery on the same partition: PageRank and Hash-Min with a
+   checkpointer and a message log, one shard recovered from the log against
+   the live run, and a run resumed from the checkpoint against the
+   uninterrupted one;
+7. repartitioning 8 -> 6 -> 8 shards and topology mutation on a smaller RMAT
+   graph (scale 20, as the host work of rebuilding a partition grows with
+   |E|), against the run that was not rescaled;
+8. the skip() prefix: the flat scan against the row-wise one it replaced;
+9. two supersteps of the main path under ``torch.profiler``: PageRank's
    third (dense) and Hash-Min's fifth (a small frontier), each with its
-   ten costliest device ops and the card's idle share.
+   ten costliest device ops, the prefix's scan, and the card's idle share.
 
 It prints the launch counts of the ``kernel`` run, and the per-kernel JSON
 line and the device line last. It needs a CUDA device and the CUDA toolkit,
@@ -35,8 +49,10 @@ import argparse
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -52,7 +68,9 @@ SUM_RTOL, SUM_ATOL = 1e-5, 1e-6
 PAGERANK_TOL = 1e-5  # absolute, on the small graph and on the main path
 PAGERANK_REL_TOL = 1e-5  # main path: max |kernel - torch| over max |torch|
 PAGERANK_RTOL = 1e-4  # main path: at every vertex
+COMPACT_RTOL = 2e-2  # recoded_compact: one bf16 rounding a message
 SHARDS = 8
+ELASTIC_SCALE = 20
 
 
 class SmokeFailure(RuntimeError):
@@ -366,6 +384,120 @@ def _bfs_numpy(n_vertices, src, dst, source):
     return level
 
 
+def edges_into(pg, dst_gids: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(src gid, dst gid) of every edge of ``pg`` whose destination is in
+    ``dst_gids``, read from the partition on its device."""
+    import torch
+
+    n = pg.n_shards
+    srcs, dsts = [np.zeros(0, np.int64)], [np.zeros(0, np.int64)]
+    for k in range(n):
+        mine = dst_gids[dst_gids % n == k] // n
+        if mine.size == 0:
+            continue
+        sp, dp = pg.src_pos[:, k], pg.dst_pos[:, k]
+        pos = torch.from_numpy(mine.astype(np.int32)).to(pg.device)
+        i, e = (torch.isin(dp, pos) & (sp >= 0)).nonzero(as_tuple=True)
+        srcs.append(pg.gids[i, sp[i, e].long()].cpu().numpy())
+        dsts.append(dp[i, e].long().cpu().numpy() * n + k)
+    return np.concatenate(srcs), np.concatenate(dsts)
+
+
+def _runs(dst_gids, keys):
+    """Sorted distinct ``keys`` (dst << 32 | payload) and, per vertex of
+    ``dst_gids``, where its run of keys starts and ends."""
+    from repro_torch.graph.csr import sorted_unique
+
+    keys = sorted_unique(keys)
+    d = keys >> 32
+    return (keys & 0xFFFFFFFF, np.searchsorted(d, dst_gids, "left"),
+            np.searchsorted(d, dst_gids, "right"))
+
+
+def _distinct_numpy(dst_gids, src_labels, dst):
+    """Per vertex of ``dst_gids``: how many distinct labels (>= 0) its
+    in-edges carry (``src_labels[j]`` on edge j into ``dst[j]``)."""
+    _, lo, hi = _runs(dst_gids, (dst << 32) | src_labels.astype(np.int64))
+    return hi - lo
+
+
+def _second_min_numpy(dst_gids, src, dst, sentinel):
+    """Per vertex of ``dst_gids``: its second-smallest distinct in-neighbour
+    gid, ``sentinel`` where it has fewer than two."""
+    payload, lo, hi = _runs(dst_gids, (dst << 32) | src)
+    second = payload[np.minimum(lo + 1, payload.size - 1)] if payload.size \
+        else np.zeros_like(lo)
+    return np.where(hi - lo >= 2, second, sentinel)
+
+
+def check_combinerless(pg, dst_gids: np.ndarray, where: str) -> list:
+    """DistinctInLabels(rounds=2) and SecondMinLabel under ``basic`` on the
+    card, held to numpy at the vertices ``dst_gids``: both supersteps of
+    DistinctInLabels (its first from the recoded ids modulo 8, its second
+    from the first's counts at the in-neighbours), and SecondMinLabel. Each
+    superstep must count one message an edge. Returns the runs' timings."""
+    import torch
+    from repro_torch.core import (
+        DistinctInLabels, EngineConfig, GraphDEngine, SecondMinLabel,
+    )
+
+    n = pg.n_shards
+    src, dst = edges_into(pg, dst_gids)
+    at = lambda v, g: v[torch.from_numpy(g % n).to(v.device),
+                        torch.from_numpy(g // n).to(v.device)].cpu().numpy()
+    rows, first = [], []
+
+    def keep_first(rec, state):  # superstep 0's labels, for the check
+        if rec.step == 0:
+            first.append(state[0].clone())
+
+    for name, prog in (("distinct", DistinctInLabels(n_groups=8, rounds=2)),
+                       ("secondmin", SecondMinLabel())):
+        eng = GraphDEngine(pg, prog, EngineConfig(mode="basic"))
+        (v, _), hist, row = timed_run(eng, f"basic {name}",
+                                      on_step=keep_first)
+        rows.append(row)
+        check([h.n_msgs for h in hist] == [pg.n_edges] * len(hist),
+              f"{where} {name}: messages per superstep differ from |E|")
+        if name == "distinct":
+            c1 = _distinct_numpy(dst_gids, src % 8, dst)
+            check(np.array_equal(at(first[0], dst_gids), c1),
+                  f"{where} distinct: superstep 0 differs from numpy")
+            c2 = _distinct_numpy(dst_gids, at(first[0], src), dst)
+            check(np.array_equal(at(v, dst_gids), c2),
+                  f"{where} distinct: superstep 1 differs from numpy")
+        else:
+            want = _second_min_numpy(dst_gids, src, dst, prog.SENTINEL)
+            check(np.array_equal(at(v, dst_gids), want),
+                  f"{where} secondmin: differs from numpy")
+    print(f"{where}: DistinctInLabels (2 supersteps) and SecondMinLabel "
+          f"(basic) equal numpy at {dst_gids.size} vertices "
+          f"({src.size} in-edges)")
+    return rows
+
+
+def timed_run(eng, label: str, **kw):
+    """``eng.run(**kw)`` with the card synced around it and its peak device
+    memory reset before: ((values, active), history, row), printed."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, hist = eng.run(**kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    steps = len(hist)
+    row = dict(run=label, supersteps=steps, seconds=secs,
+               ms_per_superstep=secs * 1e3 / steps,
+               edges_per_s=eng.pg.n_edges * steps / secs,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"run {label}: {steps} supersteps, {row['ms_per_superstep']:.3f} "
+          f"ms per superstep, edges/s {row['edges_per_s']:.4g}, peak device "
+          f"memory {row['peak_gib']:.3f} GiB")
+    return out, hist, row
+
+
 def programs(src: int):
     """(name, program factory) of the four algorithms on the main path."""
     from repro_torch.core import BFS, SSSP, HashMin, PageRank
@@ -409,6 +541,7 @@ def phase_small(seed: int) -> None:
     bfs = _bfs_numpy(g.n_vertices, g.src, g.dst, 0)
     got = np.array([old["bfs"][int(o)] for o in ids])
     check(np.array_equal(got, bfs), "small bfs: levels differ from numpy BFS")
+    check_combinerless(pg, pg.gids[pg.vmask].cpu().numpy(), "small")
     print(f"small graph: {pg.shape_summary}; pagerank max err {err:.3g} vs "
           f"numpy; bfs exact vs numpy; hashmin, sssp exact vs CPU plain")
 
@@ -493,6 +626,284 @@ def phase_main(pg, src: int) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 5: the other in-memory modes on the main partition
+# --------------------------------------------------------------------------
+
+def check_pagerank(v, ref, what: str, rtol: float | None = None) -> float:
+    """PageRank ``v`` against ``ref``: within PAGERANK_REL_TOL of the
+    largest value, or, with ``rtol``, within it at every vertex. Returns
+    the gap over the largest value."""
+    import torch
+
+    check(bool(torch.isfinite(v).all()), f"{what}: non-finite values")
+    gap = (v - ref).abs()
+    rel = float(gap.max()) / float(ref.abs().max())
+    if rtol is None:
+        check(rel < PAGERANK_REL_TOL, f"{what}: {rel} of the largest value")
+    else:
+        at_vertex = float((gap / ref.abs().clamp(min=1e-30))[ref > 0].max())
+        check(at_vertex < rtol, f"{what}: {at_vertex} relative at a vertex")
+    return rel
+
+
+def phase_modes(pg, seed: int) -> dict:
+    """basic, basic_sc and recoded_compact (torch backend) against the
+    recoded torch run: PageRank (5 supersteps) and Hash-Min to halt, then
+    the combiner-less programs under basic on a sample of destinations."""
+    import torch
+    from repro_torch.core import EngineConfig, GraphDEngine, HashMin, PageRank
+    from repro_torch.kernels.digest import digest
+    from repro_torch.kernels.edge_combine import edge_combine
+
+    edge_combine.launches = digest.launches = 0
+    rows, ref, gaps = [], {}, {}
+    for mode in ("recoded", "basic", "basic_sc", "recoded_compact"):
+        for name, prog in (("pagerank", lambda: PageRank(5)),
+                           ("hashmin", HashMin)):
+            if mode == "recoded_compact" and name == "hashmin":
+                continue  # int messages: the bf16 wire would round labels
+            eng = GraphDEngine(pg, prog(), EngineConfig(mode=mode,
+                                                        backend="torch"))
+            (v, a), hist, row = timed_run(eng, f"{mode} {name}")
+            rows.append(row)
+            steps = [(h.n_active, h.n_msgs) for h in hist]
+            if mode == "recoded":
+                ref[name] = (v, a, steps)
+                continue
+            rv, ra, rsteps = ref[name]
+            if name == "hashmin":
+                check(torch.equal(v, rv) and torch.equal(a, ra),
+                      f"modes {mode} hashmin: differs from recoded")
+                check(steps == rsteps, f"modes {mode} hashmin: superstep "
+                      "stats or halt step differ from recoded")
+            elif mode == "recoded_compact":
+                gaps[mode] = check_pagerank(v, rv, f"modes {mode} pagerank",
+                                            COMPACT_RTOL)
+            else:
+                gaps[mode] = check_pagerank(v, rv, f"modes {mode} pagerank")
+                check(steps == rsteps,
+                      f"modes {mode} pagerank: message counts differ")
+    gen = np.random.default_rng(seed)
+    real = pg.gids[pg.vmask].cpu().numpy()
+    rows += check_combinerless(pg, gen.choice(real, 256, replace=False),
+                               "modes")
+    print(f"modes: kernel launches {edge_combine.launches} edge_combine, "
+          f"{digest.launches} digest (the torch backend runs none); "
+          "hashmin exact and pagerank within "
+          f"{PAGERANK_REL_TOL} of its scale against recoded "
+          f"(recoded_compact: rtol {COMPACT_RTOL}); pagerank's largest gap "
+          "over its largest value: "
+          + ", ".join(f"{m} {g:.4g}" for m, g in gaps.items()))
+    return dict(rows=rows, hashmin_steps=len(ref["hashmin"][2]))
+
+
+# --------------------------------------------------------------------------
+# phase 6: checkpoints, the message log and single-shard recovery
+# --------------------------------------------------------------------------
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def phase_recovery(pg, hashmin_steps: int, failed: int = 3) -> dict:
+    """PageRank (5 supersteps) and Hash-Min to halt with a checkpointer and
+    a message log, in a directory of this checkout that is removed after:
+    the logged run against the unlogged one, shard ``failed`` recovered
+    from the log against the live run, and a run resumed from the
+    checkpoint (kernel backend) against the uninterrupted one."""
+    import torch
+    from repro_torch.core import (
+        Checkpointer, EngineConfig, GraphDEngine, HashMin, MessageLog,
+        PageRank, recover_shard,
+    )
+    from repro_torch.kernels.digest import digest
+    from repro_torch.kernels.edge_combine import edge_combine
+
+    # every 3 supersteps, or the next cadence that leaves two to replay
+    # (beyond the run's length only the step-0 checkpoint lands)
+    hm_every = next(e for e in range(3, hashmin_steps + 2)
+                    if hashmin_steps % e >= 2 or e > hashmin_steps)
+    out = {}
+    root = tempfile.mkdtemp(prefix=".chip_smoke-recovery-", dir=ROOT)
+    try:
+        for name, prog, every in (("pagerank", lambda: PageRank(5), 3),
+                                  ("hashmin", HashMin, hm_every)):
+            d = os.path.join(root, name)
+            ck = Checkpointer(os.path.join(d, "ckpt"), every=every)
+            log = MessageLog(os.path.join(d, "log"))
+            plain = GraphDEngine(pg, prog())  # the kernel backend
+            (v0, a0), h0, row0 = timed_run(plain, f"unlogged {name}")
+            eng = GraphDEngine(pg, prog(), message_log=log)
+            ck.save(0, *eng.init())
+            (v, a), hist, row = timed_run(eng, f"logged {name}",
+                                          state=eng.init(), checkpointer=ck)
+            steps = len(hist)
+            start = ck.latest()
+            check(steps == len(h0), f"recovery {name}: halt step differs")
+            if name == "pagerank":
+                check_pagerank(v, v0, f"recovery {name}: logged vs unlogged")
+            else:
+                check(torch.equal(v, v0),
+                      f"recovery {name}: logged run differs from unlogged")
+            check(steps - start >= 2, f"recovery {name}: only "
+                  f"{steps - start} supersteps after the checkpoint")
+            log_steps = sorted(os.listdir(log.dir))
+            log_bytes = _dir_bytes(os.path.join(log.dir, log_steps[-1]))
+            # the logged superstep alone (no file I/O) against the plain one
+            vs, as_ = plain.init()
+            t_logged = time_ms(lambda: eng.step_logged(vs, as_, 0), reps=3,
+                               budget_ms=1.0)
+            t_plain = time_ms(lambda: plain.step(vs, as_, 0), reps=3,
+                              budget_ms=1.0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vj, aj = recover_shard(pg, prog(), failed, ck, log, steps)
+            torch.cuda.synchronize()
+            rec_s = time.perf_counter() - t0
+            gap = 0.0
+            if name == "pagerank":
+                gap = check_pagerank(vj, v[failed],
+                                     f"recovery {name}: recovered shard")
+            else:
+                check(torch.equal(vj, v[failed]),
+                      f"recovery {name}: recovered shard differs")
+            check(torch.equal(aj, a[failed]),
+                  f"recovery {name}: recovered active bitmap differs")
+            edge_combine.launches = digest.launches = 0
+            resumed = GraphDEngine(pg, prog())  # the kernel backend
+            (v2, a2), h2 = resumed.run(checkpointer=ck)
+            launches = (edge_combine.launches, digest.launches)
+            check(h2[0].restored_from == start,
+                  f"recovery {name}: did not resume from step {start}")
+            check(v2.device.type == "cuda", f"recovery {name}: resumed off "
+                  "the card")
+            if name == "pagerank":
+                check_pagerank(v2, v0, f"recovery {name}: resumed run")
+            else:
+                check(torch.equal(v2, v0) and torch.equal(a2, a0),
+                      f"recovery {name}: resumed run differs")
+            check(launches[0] > 0 and (pg.n_shards == 1 or launches[1] > 0),
+                  f"recovery {name}: the resumed run launched no kernel")
+            print(f"recovery {name}: checkpoint every {every}, latest at "
+                  f"step {start} of {steps}; logged superstep "
+                  f"{row['ms_per_superstep']:.3f} ms with its log write, "
+                  f"unlogged {row0['ms_per_superstep']:.3f} ms; superstep 0 "
+                  f"alone (device) logged {t_logged:.3f} ms, kernel backend "
+                  f"{t_plain:.3f} ms; log {log_bytes} bytes a superstep; "
+                  f"shard {failed} recovered over {steps - start} supersteps "
+                  f"in {rec_s:.3f} s against the live run's "
+                  f"{row['seconds']:.3f} s (gap {gap:.4g} of the largest "
+                  "value); resumed run equals the "
+                  f"uninterrupted one, launches {launches}")
+            out[name] = dict(logged=row, unlogged=row0, recover_s=rec_s,
+                             log_bytes=log_bytes)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 7: elastic rescale and mutation on a smaller graph
+# --------------------------------------------------------------------------
+
+def phase_elastic(seed: int) -> None:
+    """Repartition 8 -> 6 -> 8 shards mid-run, and mutate the topology,
+    on an RMAT graph of scale ELASTIC_SCALE; each against the run that was
+    not rescaled or mutated (gid-ordered values)."""
+    import torch
+    from repro_torch.core import (
+        GraphDEngine, HashMin, PageRank, extract_global, mutate, repartition,
+    )
+    from repro_torch.graph import partition_graph, rmat_graph
+
+    t0 = time.perf_counter()
+    g = rmat_graph(scale=ELASTIC_SCALE, edge_factor=16, seed=seed,
+                   weights="uniform")
+    pg, _ = partition_graph(g, SHARDS)
+    del g
+    by_gid = lambda p, v, a: torch.from_numpy(extract_global(p, v, a)[2])
+    for name, prog in (("pagerank", lambda: PageRank(8)),
+                       ("hashmin", HashMin)):
+        (v_ref, a_ref), hist = GraphDEngine(pg, prog()).run()
+        # supersteps 0-1 on 8 shards, 2-3 on 6, the rest on 8 again
+        cur, state, done = pg, None, []
+        for n_shards, stop in ((SHARDS, 2), (6, 4), (SHARDS, 10_000)):
+            if cur.n_shards != n_shards:
+                cur, *state = repartition(cur, *state, n_shards)
+            if done and done[-1].n_active == 0 and name == "hashmin":
+                continue  # halted: only the state moves on
+            state, h = GraphDEngine(cur, prog()).run(
+                state=state, start_step=len(done), max_supersteps=stop)
+            done += h
+        check([(h.n_active, h.n_msgs) for h in done]
+              == [(h.n_active, h.n_msgs) for h in hist],
+              f"elastic {name}: superstep stats or halt step differ")
+        got, want = by_gid(cur, *state), by_gid(pg, v_ref, a_ref)
+        if name == "pagerank":
+            check_pagerank(got, want, f"elastic {name}")
+        else:
+            check(torch.equal(got, want), f"elastic {name}: values differ")
+    # mutation: drop 1000 edges and add 3 vertices; then add the edges back
+    # with a path new0 -> new1 -> new2 among the new vertices
+    (v0, a0), _ = GraphDEngine(pg, HashMin()).run()
+    _, _, _, _, src_g, dst_g, _ = extract_global(pg, v0, a0)
+    pick = np.random.default_rng(seed).choice(src_g.size, 1000, replace=False)
+    removed = np.stack([src_g[pick], dst_g[pick]], 1)
+    pg1, v1, a1, new = mutate(pg, v0, a0, remove_edges=removed,
+                              add_vertices=3)
+    old = lambda v: v[:, : pg.P][pg.vmask]  # the existing vertices' slots
+    check(pg1.n_vertices == pg.n_vertices + 3
+          and pg1.n_edges == pg.n_edges - 1000, "mutate: counts")
+    check(torch.equal(old(v1), old(v0)), "mutate: existing vertices moved")
+    pg2, _, _, _ = mutate(pg1, v1, a1, add_edges=np.concatenate(
+        [removed, np.stack([new[:2], new[1:]], 1)]))
+    check(pg2.n_edges == pg.n_edges + 2, "mutate: edges not added back")
+    (v2, _), _ = GraphDEngine(pg2, HashMin()).run()
+    check(torch.equal(old(v2), old(v0)),
+          "mutate: Hash-Min after the round trip differs from the original")
+    check(int(v2[new[2] % SHARDS, new[2] // SHARDS]) == int(new.min()),
+          "mutate: the new path's label is not its least id")
+    print(f"elastic: RMAT scale {ELASTIC_SCALE}, PageRank and Hash-Min "
+          "rescaled 8 -> 6 -> 8 mid-run equal the run that was not "
+          "rescaled; mutate removed 1000 edges and added 3 vertices, the "
+          "round trip gives the original components; "
+          f"{time.perf_counter() - t0:.1f} s in all (host numpy)")
+
+
+# --------------------------------------------------------------------------
+# phase 8: the skip() prefix
+# --------------------------------------------------------------------------
+
+def phase_prefix(pg, seed: int) -> dict:
+    """The flat scan of ``_active_prefix`` against the row-wise ``cumsum``
+    it replaced, on the same (n, P) bitmap; both must give the same
+    keep mask."""
+    import torch
+    from repro_torch.core.engine import _active_prefix
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=pg.device).manual_seed(seed)
+    active = (torch.rand(pg.vmask.shape, generator=gen, device=pg.device)
+              < 0.5) & pg.vmask
+    n, P = active.shape
+    zero = torch.zeros((n, 1), dtype=torch.int32, device=pg.device)
+    rowwise = lambda: torch.cat([zero, active.cumsum(1, dtype=torch.int32)], 1)
+    flat = _active_prefix(active)
+    rows = rowwise()
+    lo, hi = pg.blk_lo.reshape(n, -1), pg.blk_hi.reshape(n, -1)
+    want = (hi >= 0) & ((rows.gather(1, (hi.long() + 1).clamp(0, P))
+                         - rows.gather(1, lo.long().clamp(0, P))) > 0)
+    check(torch.equal(ops.skip_keep_mask(lo, hi, flat), want),
+          "prefix: the flat scan's keep mask differs from the row-wise one")
+    t_row = time_ms(rowwise)
+    t_flat = time_ms(lambda: _active_prefix(active))
+    print(f"prefix: ({n}, {P}) bitmap, row-wise cumsum {t_row:.4f} ms, flat "
+          f"scan {t_flat:.4f} ms (device time a call); keep masks equal")
+    return dict(rowwise_ms=t_row, flat_ms=t_flat)
+
+
 def _busy_ms(intervals) -> float:
     """Length of the union of (start, end) intervals, in their unit / 1e3."""
     busy, reach = 0.0, float("-inf")
@@ -544,7 +955,14 @@ def phase_profile(pg, name: str, program, steps_before: int,
     rows = sorted(ops.items(), key=lambda kv: -kv[1][1])[:top]
     for op, (count, t) in rows:
         print(f"profile:   {t / 1e3:8.3f} ms  x{count:3d}  {op[:110]}")
-    return dict(wall_ms=wall_ms, busy_ms=busy, idle=1 - busy / wall_ms)
+    # the skip() prefix: the device scan kernels (CUB's, or PyTorch's own)
+    scans = [(c, t) for op, (c, t) in ops.items()
+             if "scan" in op.lower() or "cumsum" in op.lower()]
+    scan_ms = sum(t for _, t in scans) / 1e3
+    print(f"profile:   skip() prefix scans: {scan_ms:.4f} ms in "
+          f"{sum(c for c, _ in scans)} device ops")
+    return dict(wall_ms=wall_ms, busy_ms=busy, idle=1 - busy / wall_ms,
+                scan_ms=scan_ms)
 
 
 def main(argv=None) -> int:
@@ -587,6 +1005,10 @@ def main(argv=None) -> int:
     kernels = phase_kernels(pg, args.seed)
     phase_small(args.seed)
     launches = phase_main(pg, src)
+    modes = phase_modes(pg, args.seed)
+    phase_recovery(pg, modes["hashmin_steps"])
+    phase_elastic(args.seed)
+    phase_prefix(pg, args.seed)
     # the dense path, and a late Hash-Min superstep: a small frontier
     from repro_torch.core import HashMin, PageRank
 

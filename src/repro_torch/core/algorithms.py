@@ -4,9 +4,8 @@
 * Hash-Min   — connected components, shrinking workload, MIN over int32
 * SSSP / BFS — sparse frontier, the skip() stress case, MIN
 * DegreeSum / LabelSpread — extra coverage for SUM and MAX (int32)
-
-The combiner-less programs of the JAX package (DistinctInLabels,
-SecondMinLabel) need the message-list path, which the port does not have yet.
+* DistinctInLabels / SecondMinLabel — no combiner: they run on ``basic``
+  mode's destination-sorted message lists (``apply_list``)
 """
 
 from __future__ import annotations
@@ -15,6 +14,7 @@ import torch
 
 from repro_torch.core.api import (
     IMAX, IMIN, MIN, SUM, ShardContext, VertexProgram, keep_halted,
+    segment_count_distinct, segment_second_min,
 )
 
 
@@ -119,6 +119,59 @@ class DegreeSum(VertexProgram):
 
     def apply(self, value, degree, msg, has_msg, active, step, ctx):
         return torch.where(has_msg, msg, 0.0), torch.zeros_like(active)
+
+
+class DistinctInLabels(VertexProgram):
+    """Count DISTINCT labels among in-neighbours — a reduction no message
+    combiner expresses (§3.3: such programs run on the sorted IMS).
+
+    Superstep 0: every vertex broadcasts its label (its recoded id modulo
+    ``n_groups``). Superstep 1: each vertex counts the distinct labels it
+    received. With ``rounds > 1`` the count becomes the next round's label
+    and every vertex broadcasts again."""
+
+    combiner = None
+    value_dtype = torch.int32
+    msg_dtype = torch.int32
+
+    def __init__(self, n_groups: int = 16, rounds: int = 1):
+        self.n_groups = n_groups
+        self.num_supersteps = rounds
+
+    def init(self, ctx: ShardContext):
+        return (ctx.new_ids % self.n_groups).to(torch.int32), \
+            torch.ones_like(ctx.vmask)
+
+    def message(self, value, degree, weight, step):
+        return value
+
+    def apply_list(self, value, degree, sorted_dst, sorted_msg, has_msg,
+                   active, step, ctx):
+        distinct = segment_count_distinct(sorted_dst, sorted_msg, ctx.P)
+        return distinct, torch.full_like(active, step + 1 < self.num_supersteps)
+
+
+class SecondMinLabel(VertexProgram):
+    """Second-smallest DISTINCT incoming label (``SENTINEL`` when fewer
+    than two arrive): two ordered passes over each vertex's message list,
+    which no single combiner expresses."""
+
+    combiner = None
+    value_dtype = torch.int32
+    msg_dtype = torch.int32
+    num_supersteps = 1
+    SENTINEL = 2**31 - 1
+
+    def init(self, ctx: ShardContext):
+        return ctx.new_ids.to(torch.int32), torch.ones_like(ctx.vmask)
+
+    def message(self, value, degree, weight, step):
+        return value
+
+    def apply_list(self, value, degree, sorted_dst, sorted_msg, has_msg,
+                   active, step, ctx):
+        m2 = segment_second_min(sorted_dst, sorted_msg, ctx.P, self.SENTINEL)
+        return torch.where(has_msg, m2, self.SENTINEL), torch.zeros_like(active)
 
 
 class LabelSpread(VertexProgram):

@@ -8,7 +8,9 @@ the same. A ``VertexProgram`` specifies:
 * ``init``     — superstep-0 values and active flags,
 * ``message``  — the value a source vertex sends along an out-edge,
 * ``apply``    — how a vertex digests its combined messages and votes to halt,
-* ``combiner`` — the message combiner with identity ``e0`` (§5 needs one),
+* ``combiner`` — the message combiner with identity ``e0`` (§5 needs one;
+  None sends the program down ``basic`` mode's message-list path, where
+  ``apply_list`` digests each vertex's destination-sorted messages),
 * ``msg_kind`` — the message as the hand-written kernel knows it
   (``kernels/edge_combine.py``); None means the plain backend only.
 """
@@ -115,6 +117,16 @@ class VertexProgram:
         Vertices outside ``active | has_msg`` keep their value."""
         raise NotImplementedError
 
+    def apply_list(self, value, degree, sorted_dst, sorted_msg, has_msg,
+                   active, step: int,
+                   ctx: ShardContext) -> tuple[torch.Tensor, torch.Tensor]:
+        """Digest *message lists* (programs with no combiner, §3.3.2).
+        ``sorted_dst``/``sorted_msg`` are ``(n, M)``: row i holds the
+        messages shard i received, ascending by destination position, with
+        ``P`` marking padding (the merge-sorted IMS). The segment helpers
+        below turn them into per-vertex reductions."""
+        raise NotImplementedError
+
     def aggregate(self, value, new_value, has_msg) -> torch.Tensor | None:
         return None
 
@@ -122,3 +134,61 @@ class VertexProgram:
 def keep_halted(new_value, value, compute_mask):
     """Pregel halted semantics: untouched vertices keep their value."""
     return torch.where(compute_mask, new_value, value)
+
+
+# ---------------------------------------------------------------------------
+# segment helpers over destination-sorted message runs (for apply_list)
+# ---------------------------------------------------------------------------
+# Inputs are ``(n, M)`` rows of the sorted IMS, one row a shard: runs grouped
+# by destination position, ``dst == P`` for padding. Outputs are ``(n, P)``.
+# Each scatters into the flat ``(n*P,)`` output at ``row*P + dst``; padding
+# goes to position 0 of its row with a value that changes nothing there.
+
+def _flat_index(dst: torch.Tensor, keep: torch.Tensor, P: int) -> torch.Tensor:
+    row = torch.arange(dst.shape[0], device=dst.device)[:, None] * P
+    return (torch.where(keep, dst.long(), 0) + row).reshape(-1)
+
+
+def segment_count_distinct(sorted_dst, sorted_msg, P: int) -> torch.Tensor:
+    """Per-destination count of DISTINCT payloads — the canonical
+    not-expressible-with-a-combiner reduction. A second sort by payload
+    within runs makes duplicates adjacent: ``(dst, msg)`` packs into one
+    int64 key ``dst << 32 | (msg + 2^31)``, sorted once."""
+    key = ((sorted_dst.long() << 32) | (sorted_msg.long() + 2**31))
+    key = torch.sort(key, dim=-1, stable=True).values
+    d2 = key >> 32
+    valid = d2 < P
+    first = valid.clone()
+    first[:, 1:] &= key[:, 1:] != key[:, :-1]
+    out = torch.zeros(d2.shape[0] * P, dtype=torch.int32, device=key.device)
+    out.index_add_(0, _flat_index(d2, valid, P),
+                   first.reshape(-1).to(torch.int32))
+    return out.view(-1, P)
+
+
+def segment_sum(sorted_dst, sorted_msg, P: int) -> torch.Tensor:
+    valid = sorted_dst < P
+    out = torch.zeros(sorted_dst.shape[0] * P, dtype=sorted_msg.dtype,
+                      device=sorted_msg.device)
+    out.index_add_(0, _flat_index(sorted_dst, valid, P),
+                   torch.where(valid, sorted_msg, 0).reshape(-1))
+    return out.view(-1, P)
+
+
+def segment_second_min(sorted_dst, sorted_msg, P: int, sentinel) -> torch.Tensor:
+    """Per-destination SECOND-smallest distinct payload (``sentinel`` where
+    fewer than two distinct payloads arrived). Two ordered passes over the
+    message list: no single commutative combiner expresses it."""
+    n = sorted_dst.shape[0]
+    valid = sorted_dst < P
+    big = torch.full((n * P,), sentinel, dtype=sorted_msg.dtype,
+                     device=sorted_msg.device)
+    m1 = big.clone().scatter_reduce_(
+        0, _flat_index(sorted_dst, valid, P),
+        torch.where(valid, sorted_msg, sentinel).reshape(-1), "amin")
+    gt = valid & (sorted_msg > m1.view(n, P).gather(
+        1, sorted_dst.long().clamp(0, P - 1)))
+    return big.scatter_reduce_(
+        0, _flat_index(sorted_dst, gt, P),
+        torch.where(gt, sorted_msg, sentinel).reshape(-1), "amin",
+    ).view(n, P)

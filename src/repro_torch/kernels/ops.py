@@ -17,12 +17,17 @@ def skip_keep_mask(blk_lo: torch.Tensor, blk_hi: torch.Tensor,
     """keep = block has an active source, by the skip() test
     prefix[hi+1] - prefix[lo] > 0 over the active bitmap.
 
-    ``active_prefix`` is ``(n, P+1)``; ``blk_lo/blk_hi`` are ``(n, NB)``
-    source ranges of shard i's blocks, with (P, -1) for an empty block."""
-    P = active_prefix.shape[-1] - 1
-    hi = (blk_hi.long() + 1).clamp(0, P)
-    lo = blk_lo.long().clamp(0, P)
-    cnt = active_prefix.gather(-1, hi) - active_prefix.gather(-1, lo)
+    ``active_prefix`` is the flat ``(n*P + 1,)`` prefix of the ``(n, P)``
+    bitmap (``core.engine._active_prefix``); ``blk_lo/blk_hi`` are ``(n, NB)``
+    source ranges of shard i's blocks, with (P, -1) for an empty block.
+    Row i's positions start at i*P in the flat prefix, and the difference
+    of two entries of one row needs no per-row offset."""
+    n = blk_lo.shape[0]
+    P = (active_prefix.shape[0] - 1) // n
+    base = torch.arange(n, device=blk_lo.device)[:, None] * P
+    hi = (blk_hi.long() + 1).clamp(0, P) + base
+    lo = blk_lo.long().clamp(0, P) + base
+    cnt = active_prefix[hi] - active_prefix[lo]
     return (blk_hi >= 0) & (cnt > 0)
 
 

@@ -1,5 +1,7 @@
-"""The port's kernels on the card against their plain versions, and the
-engine's kernel backend against its torch backend on the card.
+"""The port's kernels on the card against their plain versions, the
+engine's kernel backend against its torch backend on the card, the other
+in-memory modes and the recovery layer on the card against the CPU, and the
+flat skip() prefix at a size where n*P passes 2^24.
 
 These tests need a CUDA device and skip without one. They import neither
 jax nor the JAX package, so they run on the GPU machine as they are:
@@ -12,7 +14,8 @@ import pytest
 import torch
 
 from repro_torch.core import (
-    BFS, SSSP, EngineConfig, GraphDEngine, HashMin, LabelSpread, PageRank,
+    BFS, SSSP, Checkpointer, DistinctInLabels, EngineConfig, GraphDEngine,
+    HashMin, LabelSpread, MessageLog, PageRank, SecondMinLabel, recover_shard,
 )
 from repro_torch.core.engine import _active_prefix
 from repro_torch.graph import Graph, partition_graph, rmat_graph
@@ -262,3 +265,95 @@ def test_kernel_backend_matches_torch_backend_on_card(cuda, graph, name):
     assert torch.equal(ak, at)
     assert [(h.n_active, h.n_msgs) for h in hk] == \
         [(h.n_active, h.n_msgs) for h in ht]
+
+
+MODE_CASES = [(m, p) for m in ("basic", "basic_sc", "recoded_compact",
+                               "logged")
+              for p in ("pagerank", "hashmin", "sssp")
+              if not (m == "recoded_compact" and p == "hashmin")]
+MODE_CASES += [("basic", "distinct"), ("basic", "secondmin")]
+
+
+@pytest.mark.parametrize("mode,name", MODE_CASES)
+def test_modes_on_card_match_cpu(cuda, graph, mode, name, tmp_path):
+    """Each in-memory mode on the card against the same mode on the CPU:
+    exact for the int, MIN and MAX programs; PageRank within 1e-6, and
+    within recoded_compact's 2e-2 relative bar there (float sums land in
+    another order on the card, and the bf16 wire can round a sum that
+    differs in its last bit to the other side)."""
+    pg, rmap = graph
+    src = int(rmap.to_new(np.array([0]))[0])
+    make = dict(pagerank=lambda: PageRank(8), hashmin=HashMin,
+                sssp=lambda: SSSP(src),
+                distinct=lambda: DistinctInLabels(n_groups=8, rounds=2),
+                secondmin=SecondMinLabel)[name]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        log = (MessageLog(str(tmp_path / dev)) if mode == "logged" else None)
+        cfg = EngineConfig(mode="recoded" if mode == "logged" else mode,
+                           backend="torch")
+        eng = GraphDEngine(pg, make(), cfg, device=dev, message_log=log)
+        assert eng.pg.device.type == dev
+        runs[dev] = eng.run()
+    (vg, ag), hg = runs["cuda"]
+    (vc, ac), hc = runs["cpu"]
+    vg, ag = vg.cpu(), ag.cpu()
+    if name == "pagerank" and mode == "recoded_compact":
+        assert float(((vg - vc).abs() / vc.abs().clamp(min=1e-9)).max()) < 2e-2
+    elif name == "pagerank":
+        assert float((vg - vc).abs().max()) < 1e-6
+    else:
+        assert torch.equal(vg, vc)
+        assert [(h.n_active, h.n_msgs) for h in hg] == \
+            [(h.n_active, h.n_msgs) for h in hc]
+    assert torch.equal(ag, ac)
+
+
+def test_checkpoint_restores_onto_card_and_recovers(cuda, graph, tmp_path):
+    """restore(device="cuda") puts the state on the card; a run resumed
+    from it and a shard recovered from the log match the live run."""
+    pg, _ = graph
+    ck = Checkpointer(str(tmp_path / "ckpt"), every=3)
+    ml = MessageLog(str(tmp_path / "logs"))
+    eng = GraphDEngine(pg, HashMin(), device="cuda", message_log=ml)
+    ck.save(0, *eng.init())
+    (v, a), hist = eng.run(checkpointer=ck)
+    rv, ra, step = ck.restore(device="cuda")
+    assert rv.device.type == "cuda" and ra.device.type == "cuda"
+    assert step == ck.latest()
+    (v2, _), h2 = GraphDEngine(pg, HashMin(), device="cuda").run(
+        checkpointer=ck)
+    assert h2[0].restored_from == step and torch.equal(v2, v)
+    vj, aj = recover_shard(eng.pg, HashMin(), failed=1, ckpt=ck, log=ml,
+                           target_step=len(hist))
+    assert vj.device.type == "cuda"
+    assert torch.equal(vj, v[1]) and torch.equal(aj, a[1])
+
+
+def test_flat_prefix_matches_rowwise_on_card(cuda):
+    """At the main path's (8, 2_100_072) bitmap, where n*P passes 2^24:
+    the flat scan equals the row-wise one, row by row, and skip()'s keep
+    mask on it equals the test on the row-wise prefix."""
+    n, P = 8, 2_100_072
+    assert n * P > 2**24
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    active = torch.rand((n, P), generator=gen, device=cuda) < 0.3
+    active[2] = True
+    active[3] = False
+    flat = _active_prefix(active)
+    rows = torch.cat([torch.zeros((n, 1), dtype=torch.int32, device=cuda),
+                      active.cumsum(1, dtype=torch.int32)], 1)
+    starts = flat[torch.arange(n, device=cuda) * P][:, None]
+    got = torch.stack([flat[i * P: (i + 1) * P + 1] for i in range(n)])
+    assert torch.equal(got - starts, rows)
+    lo = torch.randint(0, P, (n, 4096), generator=gen, device=cuda,
+                       dtype=torch.int32)
+    hi = (lo + torch.randint(0, 600, (n, 4096), generator=gen, device=cuda,
+                             dtype=torch.int32)).clamp(max=P - 1)
+    lo[:, 0], hi[:, 0] = 0, P - 1
+    lo[:, 1], hi[:, 1] = P, -1
+    keep = ops.skip_keep_mask(lo, hi, flat)
+    want = (hi >= 0) & ((rows.gather(1, (hi.long() + 1).clamp(0, P))
+                         - rows.gather(1, lo.long().clamp(0, P))) > 0)
+    assert torch.equal(keep, want)
+    assert not keep[:, 1].any() and not keep[3].any() and keep[2, 0]

@@ -197,13 +197,24 @@ def test_run_respects_max_supersteps_and_state():
 # config
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("mode,slice_", [("basic", "slice 2"),
-                                         ("basic_sc", "slice 2"),
-                                         ("recoded_compact", "slice 2"),
-                                         ("streamed", "slice 3")])
+@pytest.mark.parametrize("mode,slice_", [("streamed", "slice 3")])
 def test_later_modes_name_their_slice(mode, slice_):
     with pytest.raises(tc.ConfigError, match=slice_):
         tc.EngineConfig(mode=mode).finalize()
+
+
+def test_slice2_modes_finalize_and_run():
+    """The three modes that slice 2 ported finalize to the torch backend
+    and run PageRank to the recoded run's result."""
+    pg, _ = partition_graph(_graph(scale=6), n_shards=3, edge_block=32)
+    tpg = _port_pg(pg)
+    _, v_rec, _, _ = _run_port(tpg, tc.PageRank(4), None)
+    for mode in ("basic", "basic_sc", "recoded_compact"):
+        cfg = tc.EngineConfig(mode=mode).finalize()
+        assert (cfg.mode, cfg.backend) == (mode, "torch")
+        _, v, _, hist = _run_port(tpg, tc.PageRank(4), None, mode=mode)
+        assert len(hist) == 4
+        assert np.abs(v - v_rec).max() <= 2e-2 * np.abs(v_rec).max()
 
 
 @pytest.mark.parametrize("bad", [dict(mode="nope"), dict(backend="pallas"),

@@ -18,6 +18,7 @@ from repro.graph.kblocks import build_kernel_layout
 from repro.kernels import ops as jops
 from repro.kernels.ref import digest_ref as jax_digest_ref
 from repro.kernels.ref import edge_combine_ref as jax_edge_combine_ref
+from repro_torch.core.engine import _active_prefix as port_prefix
 from repro_torch.kernels import ops
 from repro_torch.kernels.digest import digest
 from repro_torch.kernels.edge_combine import (
@@ -142,8 +143,7 @@ def test_edge_combine_on_partition_blocks(layout, msg_kind, combiner):
     blocks = lambda f: np.asarray(getattr(pg, f)).reshape(n, n, NB, B)
     sp, dp, w = blocks("src_pos"), blocks("dst_pos"), blocks("eweight")
     dest = (np.arange(n) + 1) % n
-    prefix = torch.cat([torch.zeros(n, 1, dtype=torch.int32),
-                        _t(active).cumsum(1, dtype=torch.int32)], 1)
+    prefix = port_prefix(_t(active))
     ar = np.arange(n)
     keep = ops.skip_keep_mask(_t(np.asarray(pg.blk_lo)[ar, dest]),
                               _t(np.asarray(pg.blk_hi)[ar, dest]), prefix)
@@ -343,8 +343,7 @@ def test_compaction_keeps_block_active_blocks(density):
         dest = (np.arange(4) + 3 - r) % 4
         lo = np.asarray(pg.blk_lo)[ar, dest]
         hi = np.asarray(pg.blk_hi)[ar, dest]
-        prefix = torch.cat([torch.zeros(4, 1, dtype=torch.int32),
-                            _t(active).cumsum(1, dtype=torch.int32)], 1)
+        prefix = port_prefix(_t(active))
         ids, n_keep = ops.compact_blocks(ops.skip_keep_mask(_t(lo), _t(hi), prefix))
         for i in range(4):
             want = np.asarray(ref_block_active(
