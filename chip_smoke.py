@@ -36,7 +36,26 @@ Phases, each of which ends the run non-zero on a failure:
 8. the skip() prefix: the flat scan against the row-wise one it replaced;
 9. two supersteps of the main path under ``torch.profiler``: PageRank's
    third (dense) and Hash-Min's fifth (a small frontier), each with its
-   ten costliest device ops, the prefix's scan, and the card's idle share.
+   ten costliest device ops, the prefix's scan, and the card's idle share;
+10. the out-of-core ``streamed`` mode at the main partition's full width:
+    its edge groups spilled from the card to a store on disk (in a
+    ``.chip_smoke-streamed-*`` directory of the checkout, removed at the
+    end), then PageRank (5 supersteps) and Hash-Min to quiescence,
+    unpipelined at the default chunks and through the full-duplex channel
+    at 256-block chunks, a semi-external Hash-Min, and PageRank unpipelined
+    at 256-block chunks, each against phase 5's
+    ``recoded`` run (Hash-Min exactly, PageRank within 1e-5 of its largest
+    value), with its ms and edges/s, blocks and bytes read a superstep, the
+    reader's wait, its peak device memory over what was allocated before
+    (under 1.5 GiB and a third of ``recoded``'s peak) and the planner's
+    memory model; no edge tensor of the streamed partition is on the card;
+11. the streamed paths whose host work grows fastest, on RMAT scale 20:
+    Hash-Min over a compressed store and through the compressed channel,
+    DistinctInLabels and SecondMinLabel through the message spill and
+    external merge (against numpy), a ``GraphDJob`` whose memory budget
+    forces ``streamed`` (against the in-memory run), and a checkpoint and
+    run-file-log drill (one shard recovered; a checkpoint refused against
+    another store).
 
 It prints the launch counts of the ``kernel`` run, and the per-kernel JSON
 line and the device line last. It needs a CUDA device and the CUDA toolkit,
@@ -695,7 +714,7 @@ def phase_modes(pg, seed: int) -> dict:
           f"(recoded_compact: rtol {COMPACT_RTOL}); pagerank's largest gap "
           "over its largest value: "
           + ", ".join(f"{m} {g:.4g}" for m, g in gaps.items()))
-    return dict(rows=rows, hashmin_steps=len(ref["hashmin"][2]))
+    return dict(rows=rows, hashmin_steps=len(ref["hashmin"][2]), ref=ref)
 
 
 # --------------------------------------------------------------------------
@@ -965,6 +984,320 @@ def phase_profile(pg, name: str, program, steps_before: int,
                 scan_ms=scan_ms)
 
 
+# --------------------------------------------------------------------------
+# phases 10-11: the out-of-core streamed mode
+# --------------------------------------------------------------------------
+
+EDGE_FIELDS = ("src_pos", "dst_pos", "eweight", "blk_lo", "blk_hi")
+
+
+def streamed_run(eng, label: str, **kw):
+    """``eng.run(**kw)`` of a streamed engine with the card synced around
+    it: ms a superstep, edges/s, blocks and bytes read off disk a
+    superstep, the reader's wait against the rest of the superstep loop,
+    the increment of peak device memory over what was allocated before the
+    run, and the planner's ``memory_model()`` of the engine, printed.
+    Edges/s is printed twice: nominal (|E| a superstep, whatever skip()
+    left out) and staged (the edges in the blocks the reader staged).
+    Returns ((values, active), history, row)."""
+    import torch
+
+    check(eng.pg.device.type == "cuda", f"{label}: engine off the card")
+    check(all(getattr(eng.pg, f).numel() == 0 for f in EDGE_FIELDS),
+          f"{label}: an edge tensor of the streamed partition is on the card")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, hist = eng.run(**kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    steps = len(hist)
+    io = eng.io_history
+    wait = sum(s.wait_seconds for s in io)
+    read = sum(s.read_seconds for s in io)
+    nbytes = sum(s.bytes_read for s in io)
+    model = eng.memory_model()
+    row = dict(
+        run=label, supersteps=steps, seconds=secs,
+        ms_per_superstep=secs * 1e3 / steps,
+        edges_per_s=eng.pg.n_edges * steps / secs,
+        staged_edges_per_s=sum(s.edges_staged for s in io) / secs,
+        blocks_per_superstep=sum(h.blocks_read for h in hist) / steps,
+        cache_hits_per_superstep=sum(h.cache_hits for h in hist) / steps,
+        bytes_per_superstep=nbytes / steps,
+        chunks_per_superstep=sum(s.chunks for s in io) / steps,
+        reader_wait_s=wait, reader_read_s=read, loop_s=secs - wait,
+        read_gb_per_s=nbytes / read / 1e9 if read else 0.0,
+        peak_increment_gib=(torch.cuda.max_memory_allocated() - base) / 2**30,
+        model=model,
+    )
+    print(f"streamed {label}: {steps} supersteps, "
+          f"{row['ms_per_superstep']:.3f} ms per superstep, edges/s "
+          f"{row['edges_per_s']:.4g} nominal (|E| a superstep), "
+          f"{row['staged_edges_per_s']:.4g} staged; a superstep: "
+          f"{row['blocks_per_superstep']:.1f} blocks and "
+          f"{row['bytes_per_superstep']:.6g} bytes read off disk, "
+          f"{row['cache_hits_per_superstep']:.1f} cache hits, "
+          f"{row['chunks_per_superstep']:.1f} chunks; reader wait "
+          f"{wait:.3f} s against {secs - wait:.3f} s of the rest of the loop "
+          f"(producer reads {read:.3f} s, {row['read_gb_per_s']:.3f} GB/s); "
+          f"peak device memory +{row['peak_increment_gib']:.4f} GiB over "
+          f"the {base / 2**30:.3f} GiB allocated before; memory_model "
+          f"{model}, fold stager {eng._stager.nbytes} bytes of host RAM "
+          f"outside it")
+    return out, hist, row
+
+
+def check_streamed(name: str, v, a, hist, ref, what: str) -> float:
+    """A streamed run against the in-memory ``recoded`` run ``ref`` =
+    (values, active, [(n_active, n_msgs)]): Hash-Min exactly, PageRank
+    within PAGERANK_REL_TOL of its largest value; bitmaps, message counts
+    and halt step exactly. Returns PageRank's gap (0 for Hash-Min)."""
+    import torch
+
+    rv, ra, rsteps = ref
+    check([(h.n_active, h.n_msgs) for h in hist] == rsteps,
+          f"{what}: superstep stats or halt step differ from recoded")
+    check(torch.equal(a, ra), f"{what}: active bitmap differs from recoded")
+    if name == "pagerank":
+        return check_pagerank(v, rv, f"{what}: pagerank")
+    check(torch.equal(v, rv), f"{what}: values differ from recoded")
+    return 0.0
+
+
+def phase_streamed(pg, ref: dict, recoded_peak_gib: float) -> dict:
+    """mode='streamed' at the main partition's full width: its edge groups
+    spilled to a store in a directory of this checkout (removed after),
+    then PageRank (5 supersteps) and Hash-Min to its halt, unpipelined and
+    through the full-duplex channel at the default StreamConfig, and again
+    through the channel at 256-block chunks; a semi-external Hash-Min whose
+    hot-block cache holds some blocks, and both unpipelined at 256-block
+    chunks; each against phase 5's recoded run."""
+    from repro_torch.core import (
+        ChannelConfig, EngineConfig, GraphDEngine, HashMin, PageRank,
+        StreamConfig,
+    )
+    from repro_torch.graph import spill_partition
+
+    rows = []
+    root = tempfile.mkdtemp(prefix=".chip_smoke-streamed-", dir=ROOT)
+    try:
+        t0 = time.perf_counter()
+        pgs, store = spill_partition(pg, os.path.join(root, "edges"))
+        spill_s = time.perf_counter() - t0
+        print(f"streamed: spilled {store.disk_bytes()} bytes of edge groups "
+              f"in {spill_s:.1f} s (one (src, dst) group at a time from the "
+              f"card); {store.nonempty_blocks()} non-empty blocks")
+        progs = (("pagerank", lambda: PageRank(5)), ("hashmin", HashMin))
+        # at the default 8-block chunks the reader's cost a chunk (~65,700
+        # chunks a dense superstep) hides everything else, the channel
+        # included: the channel runs again at 256-block chunks, as do the
+        # semi-external run and both programs unpipelined
+        big = StreamConfig(chunk_blocks=256)
+        # the hot cache holds about a tenth of a shard's blocks
+        cache = store.nonempty_blocks() // pg.n_shards // 10 \
+            * store.block_bytes()
+        runs = [(f"{label} {name}", prog, cfg)
+                for label, cfg in (
+                    ("unpipelined", EngineConfig(mode="streamed")),
+                    ("full-duplex", EngineConfig(
+                        mode="streamed", channel=ChannelConfig(pipeline=True))),
+                    ("full-duplex chunk_blocks=256", EngineConfig(
+                        mode="streamed", stream=big,
+                        channel=ChannelConfig(pipeline=True))))
+                for name, prog in progs]
+        runs.append(("semi-external chunk_blocks=256 hashmin", HashMin,
+                     EngineConfig(mode="streamed", stream=StreamConfig(
+                         chunk_blocks=256, cache_bytes=cache))))
+        # the uncached run the semi-external one is measured against
+        runs += [(f"unpipelined chunk_blocks=256 {name}", prog,
+                  EngineConfig(mode="streamed", stream=big))
+                 for name, prog in progs]
+        gaps = {}
+        for label, prog, cfg in runs:
+            name = label.split()[-1]
+            eng = GraphDEngine(pgs, prog(), cfg, stream_store=store)
+            (v, a), hist, row = streamed_run(eng, label)
+            gaps[label] = check_streamed(name, v, a, hist, ref[name],
+                                         f"streamed {label}")
+            check(row["peak_increment_gib"] < 1.5, f"streamed {label}: peak "
+                  f"device memory +{row['peak_increment_gib']} GiB")
+            check(row["peak_increment_gib"] < recoded_peak_gib / 3,
+                  f"streamed {label}: peak device memory "
+                  f"+{row['peak_increment_gib']} GiB, not under a third of "
+                  f"recoded's {recoded_peak_gib} GiB")
+            if "semi-external" in label:
+                check(row["cache_hits_per_superstep"] > 0,
+                      f"streamed {label}: the hot cache served no block")
+            rows.append(row)
+            del v, a, eng
+        print("streamed: hashmin exact and pagerank within "
+              f"{PAGERANK_REL_TOL} of its largest value against recoded in "
+              "every run; pagerank's gaps: "
+              + ", ".join(f"{k} {g:.4g}" for k, g in gaps.items()
+                          if "pagerank" in k))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(rows=rows, spill_s=spill_s, signature=store.signature())
+
+
+def phase_streamed_small(seed: int, main_signature: dict) -> None:
+    """The host-heavy streamed paths on RMAT scale ELASTIC_SCALE, each
+    against the in-memory run or numpy: Hash-Min over the compressed store
+    and through the compressed full-duplex channel, DistinctInLabels and
+    SecondMinLabel through the OMS spill and external merge, a GraphDJob
+    whose MemoryBudget forces mode='streamed', and a streamed checkpoint and
+    run-file-log drill (one shard recovered; a checkpoint refused against
+    another store)."""
+    import torch
+    from repro_torch.core import (
+        ChannelConfig, Checkpointer, DistinctInLabels, EngineConfig,
+        GraphDEngine, GraphDJob, HashMin, MemoryBudget, PageRank,
+        RunFileMessageLog, SecondMinLabel, StreamConfig, plan,
+        recover_shard_streamed,
+    )
+    from repro_torch.graph import (
+        partition_graph, partition_graph_streamed, rmat_graph,
+    )
+
+    t_all = time.perf_counter()
+    g = rmat_graph(scale=ELASTIC_SCALE, edge_factor=16, seed=seed,
+                   weights="uniform")
+    pg, rmap = partition_graph(g, SHARDS)
+    ref = {}
+    for name, prog in (("pagerank", lambda: PageRank(5)),
+                       ("hashmin", HashMin)):
+        (v, a), hist = GraphDEngine(pg, prog()).run()
+        ref[name] = (v, a, [(h.n_active, h.n_msgs) for h in hist])
+    root = tempfile.mkdtemp(prefix=".chip_smoke-streamed-", dir=ROOT)
+    try:
+        stores = {}
+        for label, kw in (("plain", {}),
+                          ("compressed", dict(compress=True,
+                                              compress_payload=True))):
+            t0 = time.perf_counter()
+            pgs, _, stores[label] = partition_graph_streamed(
+                g, SHARDS, os.path.join(root, label), recode=rmap, **kw)
+            print(f"streamed {ELASTIC_SCALE}: {label} store "
+                  f"{stores[label].disk_bytes()} bytes, partitioned and "
+                  f"spilled in {time.perf_counter() - t0:.1f} s")
+        check(stores["compressed"].signature() == stores["plain"].signature(),
+              "streamed: the compressed store's signature differs")
+        # compressed edge streams, and the compressed full-duplex channel
+        for label, ch in (("compressed store", ChannelConfig()),
+                          ("compressed store + channel", ChannelConfig(
+                              pipeline=True, compress=True,
+                              compress_payload=True))):
+            eng = GraphDEngine(pgs, HashMin(), EngineConfig(
+                mode="streamed", channel=ch),
+                stream_store=stores["compressed"])
+            (v, a), hist, _ = streamed_run(
+                eng, f"scale {ELASTIC_SCALE} {label} hashmin")
+            check_streamed("hashmin", v, a, hist, ref["hashmin"],
+                           f"streamed {ELASTIC_SCALE} {label} hashmin")
+        # the combiner-less programs: OMS spill, external merge, apply_list;
+        # one chunk a group (the merge runs in host Python, fragment by
+        # fragment, and runs of one group need no compaction pass)
+        gids = pg.gids[pg.vmask].cpu().numpy()
+        sample = np.random.default_rng(seed).choice(gids, 256, replace=False)
+        src_l, dst_l = edges_into(pg, sample)
+        for label, ch, name, prog in (
+                ("", ChannelConfig(), "distinct",
+                 lambda: DistinctInLabels(16, 1)),
+                (" full-duplex", ChannelConfig(pipeline=True), "secondmin",
+                 SecondMinLabel)):
+            eng = GraphDEngine(pgs, prog(), EngineConfig(
+                mode="streamed",
+                stream=StreamConfig(chunk_blocks=pgs.n_blocks), channel=ch),
+                stream_store=stores["plain"])
+            (v, _), hist, _ = streamed_run(
+                eng, f"scale {ELASTIC_SCALE} {name}{label}")
+            check([h.n_msgs for h in hist] == [pg.n_edges],
+                  f"streamed {ELASTIC_SCALE} {name}: messages differ from |E|")
+            at = lambda g_: torch.from_numpy(g_).to(v.device)
+            got = v[at(sample % SHARDS), at(sample // SHARDS)].cpu().numpy()
+            if name == "distinct":
+                want = _distinct_numpy(sample, src_l % 16, dst_l)
+            else:
+                want = _second_min_numpy(sample, src_l, dst_l,
+                                         SecondMinLabel.SENTINEL)
+            check(np.array_equal(got, want), f"streamed {ELASTIC_SCALE} "
+                  f"{name}{label}: differs from numpy")
+        print(f"streamed {ELASTIC_SCALE}: distinct and secondmin equal numpy "
+              f"at {sample.size} destinations ({src_l.size} in-edges)")
+        # the job: a budget just under the in-memory plan's RAM
+        loose = plan(HashMin(), g, MemoryBudget(n_shards=SHARDS))
+        budget = MemoryBudget(ram_per_shard=loose.alternatives[0].ram_total
+                              - 1, n_shards=SHARDS)
+        t0 = time.perf_counter()
+        with GraphDJob(HashMin(), g, budget=budget,
+                       workdir=os.path.join(root, "job")) as job:
+            print(job.plan.explain())
+            check(job.plan.mode == "streamed",
+                  f"job: planned {job.plan.mode}, not streamed")
+            res = job.run()
+        want = GraphDEngine(pg, HashMin()).gather_values(ref["hashmin"][0])
+        check(res.values == want, "job: values differ from the in-memory run")
+        print(f"job: {res.plan.mode} (pipeline {res.plan.pipeline}), "
+              f"{res.n_supersteps} supersteps in "
+              f"{time.perf_counter() - t0:.1f} s with partition and spill; "
+              f"planned RAM {res.planned_ram} bytes a shard, realized "
+              f"{res.realized_ram} (the model at the realized geometry, not "
+              f"a measurement), plus the fold stager's {job.engine._stager.nbytes}"
+              f" bytes of host RAM outside the model; values equal the "
+              f"in-memory run")
+        # checkpoint + run-file log, one shard recovered from them; the
+        # cadence leaves two supersteps or more after the last checkpoint
+        for name, prog in (("pagerank", lambda: PageRank(5)),
+                           ("hashmin", HashMin)):
+            steps = len(ref[name][2])
+            every = next(e for e in range(3, steps + 2)
+                         if steps % e >= 2 or e > steps)
+            d = os.path.join(root, f"drill-{name}")
+            ck = Checkpointer(os.path.join(d, "ckpt"), every=every)
+            log = RunFileMessageLog(os.path.join(d, "log"))
+            eng = GraphDEngine(pgs, prog(), EngineConfig(mode="streamed"),
+                               stream_store=stores["plain"], message_log=log)
+            ck.save(0, *eng.init(), meta=stores["plain"].signature())
+            (v, a), hist, row = streamed_run(
+                eng, f"scale {ELASTIC_SCALE} logged {name}", checkpointer=ck)
+            check_streamed(name, v, a, hist, ref[name],
+                           f"streamed {ELASTIC_SCALE} logged {name}")
+            start = ck.latest()
+            check(steps - start >= 2, f"drill {name}: only {steps - start} "
+                  "supersteps to replay")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vj, aj = recover_shard_streamed(pgs, prog(), 3, ck, log,
+                                            stores["plain"], steps)
+            torch.cuda.synchronize()
+            rec_s = time.perf_counter() - t0
+            if name == "pagerank":
+                check_pagerank(vj, v[3], f"drill {name}: recovered shard")
+            else:
+                check(torch.equal(vj, v[3]),
+                      f"drill {name}: recovered shard differs")
+            check(torch.equal(aj, a[3]),
+                  f"drill {name}: recovered active bitmap differs")
+            try:
+                ck.restore(expected_meta=main_signature)
+            except ValueError as e:
+                check("different edge streams" in str(e),
+                      f"drill {name}: refused for another reason: {e}")
+            else:
+                raise SmokeFailure(f"drill {name}: a checkpoint of another "
+                                   "store was not refused")
+            print(f"drill {name}: shard 3 recovered from step {start} over "
+                  f"{steps - start} supersteps in {rec_s:.3f} s against the "
+                  f"live logged run's {row['seconds']:.3f} s; equal to the "
+                  "live row; a checkpoint of the scale-24 store refused")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"streamed {ELASTIC_SCALE}: {time.perf_counter() - t_all:.1f} s "
+          "in all")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=24)
@@ -1014,6 +1347,10 @@ def main(argv=None) -> int:
 
     phase_profile(pg, "pagerank", PageRank(10), 2)
     phase_profile(pg, "hashmin", HashMin(), 4)
+    recoded_peak = max(r["peak_gib"] for r in modes["rows"]
+                       if r["run"].startswith("recoded "))
+    streamed = phase_streamed(pg, modes["ref"], recoded_peak)
+    phase_streamed_small(args.seed, streamed["signature"])
     for name, k in kernels.items():
         k["launches"] = launches[name]
     print(f"total {time.perf_counter() - t_start:.1f} s; card {built['power']}")

@@ -44,3 +44,9 @@ def state_from_arrays(values: np.ndarray, active: np.ndarray, device=None):
     device = resolve_device(device)
     values = np.asarray(values)
     return _tensor(values, values.dtype, device), _tensor(active, np.bool_, device)
+
+
+def numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype of a torch dtype (for the numpy-side stores, the
+    planner's byte model and the job's identity file)."""
+    return torch.empty(0, dtype=dtype).numpy().dtype

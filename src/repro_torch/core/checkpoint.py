@@ -31,6 +31,7 @@ import shutil
 import numpy as np
 import torch
 
+from repro_torch.convert import numpy_dtype
 from repro_torch.core.api import ShardContext, VertexProgram
 from repro_torch.device import resolve_device
 from repro_torch.graph.partition import PartitionedGraph
@@ -60,15 +61,18 @@ class Checkpointer:
                               ignore_errors=True)
 
     # -- write ---------------------------------------------------------------
-    def maybe_save(self, step: int, values, active) -> bool:
+    def maybe_save(self, step: int, values, active, meta=None) -> bool:
         """Save if ``step`` is on the cadence; True iff a checkpoint landed
         (the engine drops message logs only after a durable save)."""
         if self.every and step % self.every == 0:
-            self.save(step, values, active)
+            self.save(step, values, active, meta=meta)
             return True
         return False
 
-    def save(self, step: int, values, active):
+    def save(self, step: int, values, active, meta=None):
+        """``meta`` (JSON-able) is recorded in the manifest; the streamed
+        engine passes the edge-stream store's signature so that recovery
+        can refuse vertex state written against other edge streams."""
         vals = _numpy(values)
         act = _numpy(active)
         tmp = os.path.join(self.dir, f".tmp-step-{step:06d}")
@@ -79,7 +83,7 @@ class Checkpointer:
                      values=vals[i], active=act[i])
         manifest = dict(step=step, n_shards=int(vals.shape[0]),
                         P=int(vals.shape[1]), dtype=str(vals.dtype),
-                        meta=None)  # the streamed mode records its edge streams here
+                        meta=meta)
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
             f.flush()
@@ -117,12 +121,22 @@ class Checkpointer:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
         return os.path.join(self.dir, f"step-{step:06d}"), step
 
-    def restore(self, step: int | None = None, device=None):
-        """(values, active, step) as ``(n, P)`` tensors on ``device``."""
+    def restore(self, step: int | None = None, expected_meta=None,
+                device=None):
+        """(values, active, step) as ``(n, P)`` tensors on ``device``.
+        When ``expected_meta`` is given and the checkpoint recorded a
+        (non-null) meta, the two must match: a checkpoint written against
+        other edge streams is unusable state, not a silent wrong answer."""
         device = resolve_device(device)
         d, step = self._step_dir(step)
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
+        got = manifest.get("meta")
+        if expected_meta is not None and got is not None and got != expected_meta:
+            raise ValueError(
+                f"checkpoint step-{step:06d} was written against different "
+                f"edge streams: manifest meta {got} != expected {expected_meta}"
+            )
         vals, acts = [], []
         for i in range(manifest["n_shards"]):
             with np.load(os.path.join(d, f"shard-{i}.npz")) as z:
@@ -176,6 +190,244 @@ class MessageLog:
             m = _STEP_DIR.match(name)
             if m and int(m.group(1)) < step:
                 shutil.rmtree(os.path.join(self.dir, name), ignore_errors=True)
+
+
+class RunFileMessageLog(MessageLog):
+    """Message logs backed by the ``streams.msgstore`` run files: the
+    persisted OMSs of the paper, usable by ``mode="streamed"`` because they
+    are written incrementally (never an (n, n, P) buffer).
+
+    Two content shapes share one on-disk format (a ``MessageRunStore`` per
+    superstep under ``step-NNNNNN/``), the JAX package's:
+
+    * combiner path: one sorted run per (src->dest) group holding the
+      *combined* A_s as sparse ``(dst_pos, msg, cnt)`` triples, appended by
+      :meth:`save_group` as the streamed fold finishes each group, or by
+      the pipelined engine's channel sender, whose inbox store IS this
+      log's per-step store;
+    * combiner-less path: the engine's raw OMS spill store for the
+      superstep is created under this directory (``open_step``): the runs
+      the external merge consumes ARE the log.
+
+    The engine calls :meth:`configure` with the program geometry; a log
+    reopened for recovery reads it back from the per-step run indexes.
+    """
+
+    def __init__(self, directory: str):
+        super().__init__(directory)
+        self._n_shards = None
+        self._P = None
+        self._msg_dtype = None
+        self._e0 = 0
+        self._combined = True
+        self._compress = False
+        self._compress_payload = False
+        self._open_stores: dict[int, object] = {}
+
+    def configure(self, n_shards: int, P: int, msg_dtype, e0=0,
+                  combined: bool = True, compress: bool = False,
+                  compress_payload=False):
+        self._n_shards = int(n_shards)
+        self._P = int(P)
+        self._msg_dtype = np.dtype(msg_dtype)
+        self._e0 = e0
+        self._combined = bool(combined)
+        self._compress = bool(compress)
+        self._compress_payload = compress_payload or False
+
+    def step_dir(self, step: int) -> str:
+        return os.path.join(self.dir, f"step-{step:06d}")
+
+    def open_step(self, step: int):
+        """Fresh (truncated) per-step run store for the engine to spill
+        into; re-running a crashed superstep starts its OMS over."""
+        from repro_torch.streams.msgstore import MessageRunStore
+
+        store = MessageRunStore(
+            self.step_dir(step), self._n_shards, self._P, self._msg_dtype,
+            with_counts=self._combined, compress=self._compress,
+            compress_payload=self._compress_payload,
+        )
+        self._open_stores[step] = store
+        return store
+
+    def _store_for(self, step: int):
+        from repro_torch.streams.msgstore import MessageRunStore
+
+        store = self._open_stores.get(step)
+        if store is None:
+            store = MessageRunStore.open(self.step_dir(step))
+            self._open_stores[step] = store
+        return store
+
+    # -- writes (combiner path) ----------------------------------------------
+    def save_group(self, step: int, src: int, dest: int, A_s, cnt):
+        """Persist one combined outgoing buffer A_s(src->dest) as a sparse
+        sorted run; positions with no messages are dropped (they hold the
+        combiner identity by construction)."""
+        if self._n_shards is None:
+            raise ValueError(
+                "RunFileMessageLog is unconfigured; the engine calls "
+                "configure() from its constructor — do the same before "
+                "logging directly (the combiner identity e0 cannot be "
+                "guessed: densifying with the wrong one corrupts recovery)"
+            )
+        store = self._open_stores.get(step)
+        if store is None:
+            store = self.open_step(step)
+        store.append_combined(dest, _numpy(A_s), _numpy(cnt), tag=src)
+
+    def save(self, step: int, A_s_all, cnt_all):
+        """The in-memory logged step's dense (n_src, n_dest, P) buffers,
+        fanned out into per-group runs."""
+        A = _numpy(A_s_all)
+        C = _numpy(cnt_all)
+        for i in range(A.shape[0]):
+            for k in range(A.shape[1]):
+                self.save_group(step, i, k, A[i, k], C[i, k])
+        self.close_step(step)  # publish the index once per superstep
+
+    # -- reads ----------------------------------------------------------------
+    def load_for_dest(self, step: int, dest: int, n_shards: int,
+                      skip_shard: int):
+        """Densify the logged runs back into (A_s, cnt) pairs per surviving
+        source shard (groups that skip() pruned contributed the identity
+        and have no run)."""
+        store = self._store_for(step)
+        if not store.with_counts:
+            raise ValueError(
+                "this log holds raw combiner-less OMS runs; dense (A_s, cnt)"
+                " reads only apply to combined logs — recover with "
+                "recover_shard_streamed, which merge-streams the runs"
+            )
+        e0 = self._e0 if self._e0 is not None else 0
+        return [
+            store.read_combined(dest, seg, e0)
+            for seg in store.runs(dest) if seg.tag != skip_shard
+        ]
+
+    def close_step(self, step: int):
+        """Publish the step's run index once, release the write handles,
+        and forget the in-memory store; later reads reopen it from the
+        saved index."""
+        store = self._open_stores.pop(step, None)
+        if store is not None:
+            store.save_index()
+            store.close()
+
+    def gc_before(self, step: int):
+        for s in list(self._open_stores):
+            if s < step:
+                self._open_stores.pop(s).close()
+        super().gc_before(step)
+
+
+def recover_shard_streamed(pg: PartitionedGraph, program: VertexProgram,
+                           failed: int, ckpt: Checkpointer,
+                           log: RunFileMessageLog, store, target_step: int):
+    """Single-shard fast recovery for ``mode="streamed"`` ([19] / §3.4).
+
+    Only shard ``failed`` recomputes, on ``pg``'s device: its rows reload
+    from the latest checkpoint and supersteps replay forward. The messages
+    at step t are the peers' logged OMSs for destination ``failed`` plus the
+    shard's own (failed->failed) contribution, regenerated by streaming that
+    one edge group back off disk (``store``, a ``streams.EdgeStreamStore``);
+    no other group is read.
+
+    With a combiner the logged runs are densified and combined with the
+    regenerated group in ascending source order, the live engine's transmit
+    order; without one the peers' sorted runs are merge-streamed with the
+    regenerated runs through the engine's own apply_list slicing. Returns
+    (values_row, active_row), each ``(P,)``."""
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.core.engine import GraphDEngine, _host_copy
+    from repro_torch.streams.msgstore import MessageRunStore
+
+    dev = pg.device
+    eng = GraphDEngine(pg, program, EngineConfig(mode="streamed"),
+                       device=dev, stream_store=store, message_log=log)
+    pg, comb = eng.pg, program.combiner
+    v_j, a_j, start = ckpt.restore_shard(failed, device=dev)
+    v_j = v_j.to(program.value_dtype)
+    n, P = pg.n_shards, pg.P
+    reader, stager = eng._stream_reader, eng._stager
+    row = (pg.degree[failed], pg.vmask[failed], pg.old_ids[failed],
+           pg.gids[failed])
+
+    for t in range(start, target_step):
+        prefix = np.concatenate(
+            [[0], np.cumsum(a_j.cpu().numpy().astype(np.int64))])
+        own_ids = store.active_blocks(failed, failed, prefix)
+        own_schedule = [(failed, failed, own_ids)] if own_ids.size else []
+        if comb is not None:
+            # regenerate the failed shard's own combined group A_s(j->j)
+            # chunk by chunk, the live fold's sequence
+            own_A = comb.identity((P,), program.msg_dtype, dev)
+            own_cnt = torch.zeros(P, dtype=torch.int32, device=dev)
+            for chunk in reader.stream(own_schedule):
+                if not stager.room(chunk.sp.size):
+                    eng._stream_fold(own_A, own_cnt, v_j, pg.degree[failed],
+                                     a_j, *stager.take(), t)
+                stager.add(chunk.sp, chunk.dp, chunk.w)
+            if stager.pending:
+                eng._stream_fold(own_A, own_cnt, v_j, pg.degree[failed], a_j,
+                                 *stager.take(), t)
+            # digest the peers' logged groups AND the regenerated own group
+            # in ascending source order, the live engine's transmit order
+            store_t = log._store_for(t)
+            parts = [
+                (seg.tag, *(torch.from_numpy(x).to(dev) for x in
+                            store_t.read_combined(failed, seg, comb.e0)))
+                for seg in store_t.runs(failed) if seg.tag != failed
+            ]
+            parts.append((failed, own_A, own_cnt))
+            parts.sort(key=lambda p: p[0])
+            A_r = comb.identity((P,), program.msg_dtype, dev)
+            cnt = torch.zeros(P, dtype=torch.int32, device=dev)
+            for _, pA, pc in parts:
+                A_r = comb.combine(A_r, pA)
+                cnt = cnt + pc
+            v_j, a_j, *_ = eng._stream_apply(v_j, *row, A_r, cnt, a_j, t,
+                                             failed)
+        else:
+            # rebuild a merge-ready store: peers' logged runs (re-chunked: a
+            # chunk of a sorted run is a sorted run) + regenerated own runs
+            logged = log._store_for(t)
+            tmp = MessageRunStore(
+                os.path.join(eng.msg_spill_dir, f"recover-{t:06d}"), n, P,
+                numpy_dtype(program.msg_dtype),
+            )
+            try:
+                peer_segs: dict[int, list] = {}
+                for seg in logged.runs(failed):
+                    if seg.tag != failed:
+                        peer_segs.setdefault(seg.tag, []).append(seg)
+                # ascending source order, the live spill's run-table order,
+                # so the merge's equal-dp tie-breaking replays exactly
+                for tag in sorted(set(peer_segs) | {failed}):
+                    if tag == failed:
+                        # regenerated own messages, never trusted from disk
+                        for chunk in reader.stream(own_schedule):
+                            msg, dp, valid = eng._stream_msgs(
+                                v_j, pg.degree[failed], a_j,
+                                *stager.put(chunk.sp, chunk.dp, chunk.w), t)
+                            tmp.append_raw(failed, _host_copy(dp),
+                                           _host_copy(msg), _host_copy(valid),
+                                           tag=failed)
+                    else:
+                        for seg in peer_segs[tag]:
+                            for part in logged.iter_run(failed, seg,
+                                                        eng.msg_read_chunk):
+                                tmp.append_run(failed, part[0], part[1],
+                                               tag=tag)
+                    # re-collapse so the final merge holds one cursor per
+                    # source, not one per copied chunk
+                    tmp.compact_tag(failed, tag, eng.msg_merge_fanin,
+                                    eng.msg_read_chunk)
+                v_j, a_j, _ = eng._apply_list_merged(tmp, failed, v_j, a_j, t)
+            finally:
+                tmp.delete()
+    return v_j, a_j
 
 
 def recover_shard(pg: PartitionedGraph, program: VertexProgram, failed: int,

@@ -11,7 +11,8 @@ from repro_torch.graph.generate import (
 )
 from repro_torch.graph.partition import (
     PartitionedGraph, block_ranges, build_partition, drop_edges,
-    partition_graph,
+    partition_for_plan, partition_graph, partition_graph_streamed,
+    spill_partition,
 )
 from repro_torch.graph.recode import RecodeMap, recode_ids
 
@@ -19,4 +20,5 @@ __all__ = [
     "Graph", "build_csr", "rmat_graph", "erdos_renyi_graph", "chain_graph",
     "star_graph", "RecodeMap", "recode_ids", "PartitionedGraph",
     "block_ranges", "build_partition", "partition_graph", "drop_edges",
+    "partition_graph_streamed", "partition_for_plan", "spill_partition",
 ]

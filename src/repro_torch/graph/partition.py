@@ -214,3 +214,70 @@ def drop_edges(pg: PartitionedGraph) -> PartitionedGraph:
         blk_lo=torch.zeros((n, n, 0), dtype=torch.int32, device=dev),
         blk_hi=torch.zeros((n, n, 0), dtype=torch.int32, device=dev),
     )
+
+
+def spill_partition(pg: PartitionedGraph, directory: str,
+                    compress: bool = False, compress_payload: bool = False):
+    """Write the edge groups of ``pg`` to an on-disk ``EdgeStreamStore`` and
+    return ``(vertex_only_pg, store)``: the paper's partition-time spill.
+    Edges are written once, sequentially, in the per-destination group
+    layout, and streamed back every superstep. ``pg`` may lie on any
+    device; its groups reach the host one at a time, and the vertex-only
+    partition stays on ``pg``'s device. ``compress=True`` varint-delta
+    encodes the position channels; ``compress_payload=True``
+    payload-encodes the weight channel (both ``streams/codec.py``, both
+    lossless)."""
+    from repro_torch.streams.store import EdgeStreamStore  # streams -> partition
+
+    store = EdgeStreamStore.from_partition(
+        pg, directory, compress=compress, compress_payload=compress_payload,
+    )
+    return drop_edges(pg), store
+
+
+def partition_graph_streamed(
+    g: Graph,
+    n_shards: int,
+    spill_dir: str,
+    edge_block: int = 512,
+    vertex_pad: int = 8,
+    recode: RecodeMap | None = None,
+    compress: bool = False,
+    compress_payload: bool = False,
+    device=None,
+):
+    """``partition_graph`` for the out-of-core path: partitions in host
+    memory, spills the edge streams to ``spill_dir``, and only then moves
+    the O(|V|/n) vertex arrays to ``device`` (default: CUDA); no edge
+    tensor reaches the device. Returns ``(pg, rmap, store)``."""
+    device = resolve_device(device)
+    pg_host, rmap = partition_graph(
+        g, n_shards, edge_block=edge_block, vertex_pad=vertex_pad,
+        recode=recode, device="cpu",
+    )
+    pg, store = spill_partition(pg_host, spill_dir, compress=compress,
+                                compress_payload=compress_payload)
+    del pg_host
+    return pg.to(device), rmap, store
+
+
+def partition_for_plan(g: Graph, plan, spill_dir: str,
+                       recode: RecodeMap | None = None, device=None):
+    """Materialize the physical layout a ``core.plan.ExecutionPlan`` chose:
+    hash-partition with the plan's geometry knobs and, when the plan picked
+    the out-of-core mode, spill the edge groups to ``spill_dir`` (compressed
+    iff the plan says so). Returns ``(pg, rmap, store)``, ``store`` None for
+    the in-memory modes; ``core.job.GraphDJob`` builds every mode through
+    it."""
+    if plan.mode == "streamed":
+        return partition_graph_streamed(
+            g, plan.n_shards, spill_dir, edge_block=plan.edge_block,
+            vertex_pad=plan.vertex_pad, recode=recode,
+            compress=plan.compress,
+            compress_payload=bool(plan.compress_payload), device=device,
+        )
+    pg, rmap = partition_graph(
+        g, plan.n_shards, edge_block=plan.edge_block,
+        vertex_pad=plan.vertex_pad, recode=recode, device=device,
+    )
+    return pg, rmap, None

@@ -197,10 +197,17 @@ def test_run_respects_max_supersteps_and_state():
 # config
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("mode,slice_", [("streamed", "slice 3")])
-def test_later_modes_name_their_slice(mode, slice_):
-    with pytest.raises(tc.ConfigError, match=slice_):
-        tc.EngineConfig(mode=mode).finalize()
+@pytest.mark.parametrize("launch,slice_", [("processes", "slice 4")])
+def test_later_modes_name_their_slice(launch, slice_):
+    """The streamed mode, which slice 3 ported, finalizes to the torch
+    backend; the multi-process launch names the slice that brings it."""
+    cfg = tc.EngineConfig(mode="streamed").finalize()
+    assert (cfg.mode, cfg.backend) == ("streamed", "torch")
+    with pytest.raises(tc.ConfigError, match="needs mode='recoded'"):
+        tc.EngineConfig(mode="streamed", backend="kernel").finalize()
+    with pytest.raises(NotImplementedError, match=slice_):
+        tc.GraphDJob(tc.PageRank(2), _graph(scale=5), launch=launch,
+                     device="cpu")
 
 
 def test_slice2_modes_finalize_and_run():
