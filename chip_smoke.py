@@ -40,12 +40,11 @@ Phases, each of which ends the run non-zero on a failure:
 10. the out-of-core ``streamed`` mode at the main partition's full width:
     its edge groups spilled from the card to a store on disk (in a
     ``.chip_smoke-streamed-*`` directory of the checkout, removed at the
-    end), then PageRank (5 supersteps) and Hash-Min to quiescence,
-    unpipelined at the default chunks and through the full-duplex channel
-    at 256-block chunks, a semi-external Hash-Min, and PageRank unpipelined
-    at 256-block chunks, each against phase 5's
-    ``recoded`` run (Hash-Min exactly, PageRank within 1e-5 of its largest
-    value), with its ms and edges/s, blocks and bytes read a superstep, the
+    end), then PageRank (2 supersteps at the default chunks, 5 at
+    256-block chunks) and Hash-Min to quiescence, unpipelined and through
+    the full-duplex channel at both chunk sizes, and a semi-external
+    Hash-Min, each against a ``recoded`` run (Hash-Min exactly, PageRank
+    within 1e-5 of its largest value), with its ms and edges/s, blocks and bytes read a superstep, the
     reader's wait, its peak device memory over what was allocated before
     (under 1.5 GiB and a third of ``recoded``'s peak) and the planner's
     memory model; no edge tensor of the streamed partition is on the card;
@@ -55,7 +54,18 @@ Phases, each of which ends the run non-zero on a failure:
     external merge (against numpy), a ``GraphDJob`` whose memory budget
     forces ``streamed`` (against the in-memory run), and a checkpoint and
     run-file-log drill (one shard recovered; a checkpoint refused against
-    another store).
+    another store);
+12. ``GraphDJob(launch="processes")`` on the main graph: one worker process
+    a shard, each on the card, over the shared-filesystem transport,
+    Hash-Min to quiescence and PageRank (3 supersteps) at 256-block chunks,
+    each against the threads launch of the same job (Hash-Min exactly,
+    PageRank within 1e-6 of its largest value; superstep stats, bitmaps
+    and halt step exactly), with ms a superstep for both, each worker's
+    start to its first heartbeat and first arrival, peak host RSS and
+    device memory (polled from ``/proc`` and ``nvidia-smi`` while the job
+    runs) beside the planned per-process bytes; then the kill -9 drill at
+    scale 20 (Hash-Min with checkpoints and message logs, shard 3 killed in
+    superstep 2, respawned alone, equal to an undisturbed processes run).
 
 It prints the launch counts of the ``kernel`` run, and the per-kernel JSON
 line and the device line last. It needs a CUDA device and the CUDA toolkit,
@@ -1060,7 +1070,7 @@ def check_streamed(name: str, v, a, hist, ref, what: str) -> float:
     check([(h.n_active, h.n_msgs) for h in hist] == rsteps,
           f"{what}: superstep stats or halt step differ from recoded")
     check(torch.equal(a, ra), f"{what}: active bitmap differs from recoded")
-    if name == "pagerank":
+    if name.startswith("pagerank"):
         return check_pagerank(v, rv, f"{what}: pagerank")
     check(torch.equal(v, rv), f"{what}: values differ from recoded")
     return 0.0
@@ -1069,9 +1079,9 @@ def check_streamed(name: str, v, a, hist, ref, what: str) -> float:
 def phase_streamed(pg, ref: dict, recoded_peak_gib: float) -> dict:
     """mode='streamed' at the main partition's full width: its edge groups
     spilled to a store in a directory of this checkout (removed after),
-    then PageRank (5 supersteps) and Hash-Min to its halt, unpipelined and
-    through the full-duplex channel at the default StreamConfig, and again
-    through the channel at 256-block chunks; a semi-external Hash-Min whose
+    then PageRank (2 supersteps) and Hash-Min to its halt, unpipelined and
+    through the full-duplex channel at the default StreamConfig, and
+    PageRank (5) and Hash-Min through the channel at 256-block chunks; a semi-external Hash-Min whose
     hot-block cache holds some blocks, and both unpipelined at 256-block
     chunks; each against phase 5's recoded run."""
     from repro_torch.core import (
@@ -1093,20 +1103,28 @@ def phase_streamed(pg, ref: dict, recoded_peak_gib: float) -> dict:
         # at the default 8-block chunks the reader's cost a chunk (~65,700
         # chunks a dense superstep) hides everything else, the channel
         # included: the channel runs again at 256-block chunks, as do the
-        # semi-external run and both programs unpipelined
+        # semi-external run and both programs unpipelined. There PageRank
+        # runs 2 supersteps (~18 s each), held to a recoded run of 2, to
+        # leave phase 12 room in the smoke's time
+        short = (("pagerank2", lambda: PageRank(2)), ("hashmin", HashMin))
+        (v2, a2), h2 = GraphDEngine(pg, PageRank(2), EngineConfig(
+            mode="recoded", backend="torch")).run()
+        ref = dict(ref, pagerank2=(v2, a2, [(h.n_active, h.n_msgs)
+                                           for h in h2]))
         big = StreamConfig(chunk_blocks=256)
         # the hot cache holds about a tenth of a shard's blocks
         cache = store.nonempty_blocks() // pg.n_shards // 10 \
             * store.block_bytes()
         runs = [(f"{label} {name}", prog, cfg)
-                for label, cfg in (
-                    ("unpipelined", EngineConfig(mode="streamed")),
+                for label, cfg, programs in (
+                    ("unpipelined", EngineConfig(mode="streamed"), short),
                     ("full-duplex", EngineConfig(
-                        mode="streamed", channel=ChannelConfig(pipeline=True))),
+                        mode="streamed", channel=ChannelConfig(pipeline=True)),
+                     short),
                     ("full-duplex chunk_blocks=256", EngineConfig(
                         mode="streamed", stream=big,
-                        channel=ChannelConfig(pipeline=True))))
-                for name, prog in progs]
+                        channel=ChannelConfig(pipeline=True)), progs))
+                for name, prog in programs]
         runs.append(("semi-external chunk_blocks=256 hashmin", HashMin,
                      EngineConfig(mode="streamed", stream=StreamConfig(
                          chunk_blocks=256, cache_bytes=cache))))
@@ -1298,6 +1316,335 @@ def phase_streamed_small(seed: int, main_signature: dict) -> None:
           "in all")
 
 
+# --------------------------------------------------------------------------
+# phase 12: one worker process a shard (GraphDJob(launch="processes"))
+# --------------------------------------------------------------------------
+
+PROCS_PAGERANK_TOL = 1e-6  # processes against threads, of the largest value
+
+
+class ProcsWatch:
+    """What a running processes job does to the host and the card, polled
+    from outside it: the worker processes (found in /proc by their command
+    line, with their start time), each one's peak host RSS (``VmHWM``),
+    each compute app's device memory and the card's memory in use
+    (``nvidia-smi``), and the first heartbeat of each shard."""
+
+    def __init__(self, coord_dir: str):
+        import threading
+
+        self.coord_dir = coord_dir
+        self.workers: dict[int, dict] = {}  # pid -> shard, recover, start, hwm
+        self.device_mib: dict[int, int] = {}  # pid -> peak used_memory
+        self.card_mib = [None, 0]  # memory.used before, peak during
+        self.first_beat: dict[int, float] = {}  # shard -> wall time
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._tick = os.sysconf("SC_CLK_TCK")
+
+    def __enter__(self):
+        self.card_mib[0] = self._card_used()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    @staticmethod
+    def _smi(*query) -> list[list[str]]:
+        try:
+            out = subprocess.run(["nvidia-smi", *query,
+                                  "--format=csv,noheader,nounits"],
+                                 capture_output=True, text=True, timeout=10)
+        except (OSError, subprocess.TimeoutExpired):
+            return []
+        return [[x.strip() for x in line.split(",")]
+                for line in out.stdout.splitlines() if line.strip()]
+
+    def _card_used(self):
+        rows = self._smi("--query-gpu=memory.used")
+        return int(rows[0][0]) if rows and rows[0][0].isdigit() else None
+
+    def _scan_workers(self) -> None:
+        for name in os.listdir("/proc"):
+            if not name.isdigit():
+                continue
+            pid = int(name)
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    argv = f.read().decode(errors="replace").split("\0")
+                if "repro_torch.launch.procs" not in argv:
+                    continue
+                if pid not in self.workers:
+                    # start time: its clock ticks since boot, against the
+                    # uptime read now (both to 10 ms; /proc/stat's btime
+                    # is whole seconds)
+                    with open(f"/proc/{pid}/stat") as f:
+                        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+                    with open("/proc/uptime") as f:
+                        up = float(f.read().split()[0])
+                    i = argv.index("worker")
+                    rec = (int(argv[argv.index("--recover-to") + 1])
+                           if "--recover-to" in argv else None)
+                    self.workers[pid] = dict(
+                        shard=int(argv[i + 2]), recover_to=rec, rss_kib=0,
+                        rss_source=None,
+                        start=time.time() - (up - ticks / self._tick))
+                w = self.workers[pid]
+                w["rss_kib"], w["rss_source"] = max(
+                    (w["rss_kib"], w["rss_source"]), self._rss(pid))
+            except (OSError, ValueError, IndexError, StopIteration):
+                continue  # the process ended between the list and the read
+
+    @staticmethod
+    def _rss(pid: int) -> tuple[int, str]:
+        """(KiB, source): the kernel's peak RSS where /proc has it, else
+        the resident set now (the poll's maximum is then the peak seen)."""
+        with open(f"/proc/{pid}/status") as f:
+            fields = dict(line.split(":", 1) for line in f if ":" in line)
+        for key in ("VmHWM", "VmRSS"):
+            if key in fields:
+                return int(fields[key].split()[0]), key
+        with open(f"/proc/{pid}/statm") as f:
+            pages = int(f.read().split()[1])
+        return pages * os.sysconf("SC_PAGE_SIZE") // 1024, "statm"
+
+    def _run(self) -> None:
+        last_slow = 0.0
+        while not self._stop.wait(0.05):
+            hb = os.path.join(self.coord_dir, "heartbeat")
+            if os.path.isdir(hb):
+                for name in os.listdir(hb):
+                    if name.endswith(".json"):
+                        self.first_beat.setdefault(int(name[:-5]),
+                                                   time.time())
+            if time.monotonic() - last_slow < 1.0:
+                continue
+            last_slow = time.monotonic()
+            self._scan_workers()
+            for row in self._smi("--query-compute-apps=pid,used_memory"):
+                if len(row) == 2 and row[0].isdigit() and row[1].isdigit():
+                    pid, mib = int(row[0]), int(row[1])
+                    self.device_mib[pid] = max(self.device_mib.get(pid, 0),
+                                               mib)
+            used = self._card_used()
+            if used is not None:
+                self.card_mib[1] = max(self.card_mib[1], used)
+
+    def report(self, label: str, step0_dir: str, planned: dict) -> dict:
+        """Print one line per worker process: its start to its first
+        heartbeat and first arrival, its peak RSS and device memory,
+        beside the planned per-process bytes. Returns the figures."""
+        rows = []
+        for pid, w in sorted(self.workers.items(),
+                             key=lambda kv: (kv[1]["shard"], kv[1]["start"])):
+            arrive = os.path.join(step0_dir, f"arrive-{w['shard']}.json")
+            # a respawn's beats continue its shard's file: not its first
+            beat = (self.first_beat.get(w["shard"])
+                    if w["recover_to"] is None else None)
+            rows.append(dict(
+                pid=pid, shard=w["shard"], recover_to=w["recover_to"],
+                first_beat_s=(beat - w["start"]) if beat else None,
+                first_arrival_s=(os.path.getmtime(arrive) - w["start"]
+                                 if os.path.exists(arrive)
+                                 and w["recover_to"] is None else None),
+                rss_bytes=w["rss_kib"] * 1024, rss_source=w["rss_source"],
+                device_bytes=(self.device_mib[pid] * 2**20
+                              if pid in self.device_mib else None)))
+        fmt = lambda x, f: "not measured" if x is None else f.format(x)
+        for r in rows:
+            print(f"{label}: worker pid {r['pid']} shard {r['shard']}"
+                  + (f" (respawned, --recover-to {r['recover_to']})"
+                     if r["recover_to"] is not None else "")
+                  + f": start to first heartbeat "
+                  f"{fmt(r['first_beat_s'], '{:.3f} s')}, to first arrival "
+                  f"{fmt(r['first_arrival_s'], '{:.3f} s')}; peak RSS "
+                  f"{r['rss_bytes']} bytes ({r['rss_source']}); device "
+                  f"memory {fmt(r['device_bytes'], '{} bytes')} (nvidia-smi "
+                  "by pid)")
+        other = {pid: mib for pid, mib in self.device_mib.items()
+                 if pid not in self.workers}
+        before, peak = self.card_mib
+        # where nvidia-smi cannot tell the workers apart (a pid namespace
+        # of its own), the card's memory in use over what it was before the
+        # job ran, shared out evenly, is the per-worker figure left
+        first = [r for r in rows if r["recover_to"] is None]
+        per_worker = ((peak - before) * 2**20 // len(first)
+                      if before is not None and first else None)
+        print(f"{label}: planned per process: ram_total "
+              f"{planned['ram_total']} bytes ({planned['model']}), plus the "
+              f"fold stager's {planned['stager']} bytes outside the model; "
+              f"card memory in use {fmt(before, '{} MiB')} before, peak "
+              f"{peak} MiB during, {fmt(per_worker, '{} bytes')} a worker "
+              f"process on average; compute apps that are not workers "
+              f"(pid: MiB) {other}")
+        return dict(workers=rows, card_mib=self.card_mib, other_apps=other,
+                    device_bytes_per_worker=per_worker)
+
+
+def phase_processes(g, seed: int) -> dict:
+    """GraphDJob(launch="processes") on the main graph: one worker process
+    a shard on the card, Hash-Min to its halt and PageRank (3 supersteps)
+    at 256-block chunks, each against the threads launch of the same job
+    (its engine: the call GraphDJob.run makes under launch="threads", on
+    the same spilled store and plan); then the kill -9 drill at scale
+    ELASTIC_SCALE: Hash-Min with checkpoints and message logs, shard 3
+    killed in superstep 2, against an undisturbed processes run."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import GraphDJob, HashMin, MemoryBudget, PageRank
+    from repro_torch.core import plan as make_plan
+    from repro_torch.core.plan import fold_stager_bytes
+    from repro_torch.graph import rmat_graph
+
+    def job_plan(prog, graph, chunk_blocks=256):
+        p = make_plan(prog, graph, MemoryBudget(n_shards=SHARDS),
+                      launch="processes")
+        check(p.mode == "streamed" and p.config.channel.full_duplex,
+              f"processes: planned {p.mode}, not full-duplex streamed")
+        stream = dataclasses.replace(p.config.stream,
+                                     chunk_blocks=chunk_blocks)
+        return dataclasses.replace(p, config=dataclasses.replace(
+            p.config, stream=stream))
+
+    def planned(job):
+        st = job.plan.config.stream
+        return dict(ram_total=job.plan.ram_total, model=job.plan.model,
+                    stager=fold_stager_bytes(st.chunk_blocks, st.group_batch,
+                                             job.plan.edge_block))
+
+    # the runtime alone, the baseline of the workers' start-up and RSS: a
+    # fresh process that imports torch and opens a CUDA context
+    probe = subprocess.run([sys.executable, "-c", (
+        "import json, time\n"
+        "t = time.perf_counter()\n"
+        "import torch\n"
+        "torch.zeros(1, device='cuda')\n"
+        "dt = time.perf_counter() - t\n"
+        "f = dict(l.split(':', 1) for l in open('/proc/self/status'))\n"
+        "k = 'VmHWM' if 'VmHWM' in f else 'VmRSS'\n"
+        "print(json.dumps([dt, int(f[k].split()[0]) * 1024, k]))\n")],
+        capture_output=True, text=True, timeout=300)
+    check(probe.returncode == 0, f"processes: the runtime probe failed: "
+          f"{probe.stderr[-2000:]}")
+    probe_s, probe_rss, probe_key = json.loads(probe.stdout)
+    print(f"processes: a fresh process imports torch and opens a CUDA "
+          f"context in {probe_s:.3f} s, then holds {probe_rss} bytes "
+          f"({probe_key})")
+    out = dict(runtime=dict(seconds=probe_s, rss_bytes=probe_rss))
+    root = tempfile.mkdtemp(prefix=".chip_smoke-procs-", dir=ROOT)
+    try:
+        for name, prog in (("hashmin", HashMin), ("pagerank",
+                                                  lambda: PageRank(3))):
+            t0 = time.perf_counter()
+            job = GraphDJob(prog(), g, plan=job_plan(prog(), g),
+                            workdir=os.path.join(root, name),
+                            launch="processes")
+            setup_s = time.perf_counter() - t0
+            check(job.device.type == "cuda", "processes: job off the card")
+            procs_dir = job._dir("procs", "")
+            with ProcsWatch(os.path.join(procs_dir, "coord")) as watch:
+                t0 = time.perf_counter()
+                res = job.run()
+                procs_s = time.perf_counter() - t0
+            v_p, a_p = job._state
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (v_t, a_t), hist = job.engine.run()
+            torch.cuda.synchronize()
+            threads_s = time.perf_counter() - t0
+            label = f"processes {name}"
+            steps_p = [(h.n_active, h.n_msgs) for h in res.history]
+            steps_t = [(h.n_active, h.n_msgs) for h in hist]
+            check(steps_p == steps_t, f"{label}: superstep stats or halt "
+                  f"step differ from threads ({steps_p} vs {steps_t})")
+            check(torch.equal(a_p, a_t),
+                  f"{label}: active bitmap differs from threads")
+            if name == "pagerank":
+                gap = float((v_p - v_t).abs().max()) / float(v_t.abs().max())
+                check(gap < PROCS_PAGERANK_TOL, f"{label}: {gap} of the "
+                      "largest value from threads")
+            else:
+                gap = 0.0
+                check(torch.equal(v_p, v_t), f"{label}: values differ from "
+                      "threads")
+            check(job._last_run_recoveries == 0,
+                  f"{label}: {job._last_run_recoveries} respawns")
+            shards = sorted(w["shard"] for w in watch.workers.values())
+            check(shards == list(range(SHARDS)),
+                  f"{label}: worker processes seen for shards {shards}")
+            n = len(hist)
+            ms_p = [h.seconds * 1e3 for h in res.history]
+            print(f"{label}: {SHARDS} worker processes, {n} supersteps; "
+                  f"set-up (partition and spill) {setup_s:.1f} s; processes "
+                  f"{procs_s:.3f} s in all, ms a superstep {ms_p[0]:.1f} "
+                  f"(superstep 0, spawn included) then "
+                  + ", ".join(f"{m:.1f}" for m in ms_p[1:])
+                  + f"; threads {threads_s:.3f} s, ms a superstep "
+                  + ", ".join(f"{h.seconds * 1e3:.1f}" for h in hist)
+                  + ("; values equal" if name == "hashmin" else
+                     f"; pagerank {gap:.4g} of its largest value from "
+                     "threads")
+                  + "; superstep stats, bitmaps and halt step equal")
+            out[name] = dict(
+                setup_s=setup_s, processes_s=procs_s, threads_s=threads_s,
+                ms_processes=ms_p, ms_threads=[h.seconds * 1e3 for h in hist],
+                gap=gap, watch=watch.report(
+                    label, os.path.join(procs_dir, "coord", "step-000000"),
+                    planned(job)))
+            job.close(delete=True)
+            del v_p, a_p, v_t, a_t, job
+        # the kill -9 drill
+        g20 = rmat_graph(scale=ELASTIC_SCALE, edge_factor=16, seed=seed,
+                         weights="uniform")
+        p = job_plan(HashMin(), g20)
+        runs = {}
+        for label, opts in (("undisturbed", None),
+                            ("drill", {"kill": {"shard": 3, "step": 2}})):
+            job = GraphDJob(HashMin(), g20, plan=p, checkpoint_every=2,
+                            workdir=os.path.join(root, f"drill-{label}"),
+                            launch="processes", launch_opts=opts)
+            with ProcsWatch(os.path.join(job._dir("procs", ""),
+                                         "coord")) as watch:
+                t0 = time.perf_counter()
+                res = job.run()
+                secs = time.perf_counter() - t0
+            step0 = os.path.join(job._dir("procs", ""), "coord",
+                                 "step-000000")
+            runs[label] = (res, job._state, job._last_run_recoveries, secs,
+                           watch.report(f"processes drill {label}", step0,
+                                        planned(job)))
+            job.close(delete=True)
+        (r0, (v0, a0), n0, s0, _), (r1, (v1, a1), n1, s1, w1) = (
+            runs["undisturbed"], runs["drill"])
+        respawned = sorted((w["shard"], w["recover_to"])
+                           for w in w1["workers"]
+                           if w["recover_to"] is not None)
+        check(n0 == 0 and n1 == 1, f"drill: {n0} and {n1} respawns, not "
+              "0 and 1")
+        check([s for s, _ in respawned] == [3], f"drill: respawned "
+              f"{respawned}, not shard 3 alone")
+        check([(h.n_active, h.n_msgs) for h in r1.history]
+              == [(h.n_active, h.n_msgs) for h in r0.history],
+              "drill: superstep stats or halt step differ")
+        check(torch.equal(v1, v0) and torch.equal(a1, a0),
+              "drill: values or bitmap differ from the undisturbed run")
+        print(f"processes drill (scale {ELASTIC_SCALE}, Hash-Min, "
+              f"checkpoint_every 2): shard 3 SIGKILLed once its "
+              f"superstep-2 outbox was announced, respawned alone with "
+              f"--recover-to {respawned[0][1]}; "
+              f"{len(r1.history)} supersteps in {s1:.3f} s against the "
+              f"undisturbed run's {s0:.3f} s; values, bitmaps and superstep "
+              "stats equal")
+        out["drill"] = dict(seconds=s1, undisturbed_s=s0,
+                            recover_to=respawned[0][1])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=24)
@@ -1328,7 +1675,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     t_part = time.perf_counter() - t0 - t_gen
     src = int(rmap.to_new(np.array([0]))[0])  # old id 0: RMAT's hub
-    del g, rmap
+    del rmap  # the graph stays, for phase 12's jobs
     print(f"main graph: RMAT scale {args.scale} ef 16 seed {args.seed}: "
           f"|V| {pg.n_vertices} |E| {pg.n_edges} P {pg.P} E_cap {pg.E_cap} "
           f"blocks {pg.n_blocks}x{pg.edge_block}; host preprocessing "
@@ -1351,6 +1698,7 @@ def main(argv=None) -> int:
                        if r["run"].startswith("recoded "))
     streamed = phase_streamed(pg, modes["ref"], recoded_peak)
     phase_streamed_small(args.seed, streamed["signature"])
+    phase_processes(g, args.seed)
     for name, k in kernels.items():
         k["launches"] = launches[name]
     print(f"total {time.perf_counter() - t_start:.1f} s; card {built['power']}")

@@ -593,6 +593,94 @@ class _ChunkStager:
         return self.take()
 
 
+def fold_groups(kern: StreamKernels, stager: _ChunkStager, reader,
+                group_batch: int, edge_block: int, values, degree, active,
+                step: int, schedule, sink, first_shard: int = 0) -> None:
+    """Fold staged edge chunks into per-(src, dst) group accumulators (§5's
+    A_s, one group at a time) and hand each COMPLETED group to ``sink(src,
+    dst, A_g, cnt_g)`` in schedule order. Shared by the streamed engine's
+    supersteps and by a worker process of the multi-process launch, so both
+    fold every group in the same order of the same slots.
+
+    ``values``/``degree``/``active`` are stacks of source rows, shard
+    ``first_shard`` first (the engine's stacks hold every shard; a
+    worker's, its own shard's row alone). Small groups (a
+    single staged chunk) are folded ``group_batch`` at a time through one
+    batched call: per lane the same ops on a fresh identity accumulator,
+    so sinks see each group's unbatched result."""
+    program, comb, P = kern.program, kern.program.combiner, kern.P
+    dev = values.device
+    row = lambda i: i - first_shard
+    G = max(1, group_batch)
+    CB = reader.chunk_blocks
+    # chunks per (src, dst) group, known from the schedule up front
+    n_chunks = {(i, k): -(-len(ids) // CB) for i, k, ids in schedule}
+    slots = CB * edge_block
+    pad = (np.full((slots,), -1, np.int32), np.zeros((slots,), np.int32),
+           np.zeros((slots,), np.float32))
+    pending: list = []  # copied single-chunk groups awaiting one call
+    state = {"cur": None, "A": None, "cnt": None}
+
+    def fold_staged():
+        if stager.pending:
+            r = row(state["cur"][0])
+            kern.fold(state["A"], state["cnt"], values[r], degree[r],
+                      active[r], *stager.take(), step)
+
+    def close_cur():
+        if state["cur"] is not None:
+            fold_staged()
+            sink(state["cur"][0], state["cur"][1], state["A"], state["cnt"])
+            state["cur"] = None
+
+    def flush_batch():
+        if not pending:
+            return
+        if len(pending) == 1:
+            i, k, sp, dp, w = pending[0]
+            r = row(i)
+            A_g, cnt_g = kern.fold(
+                comb.identity((P,), program.msg_dtype, dev),
+                torch.zeros(P, dtype=torch.int32, device=dev),
+                values[r], degree[r], active[r], *stager.put(sp, dp, w), step,
+            )
+            sink(i, k, A_g, cnt_g)
+        else:
+            lanes = pending + [(pending[0][0], -1) + pad] * (G - len(pending))
+            src = torch.tensor([row(p[0]) for p in lanes], device=dev)
+            for p in lanes:
+                stager.add(*p[2:])
+            sp, dp, w = (x.view(G, slots) for x in stager.take())
+            A_b, cnt_b = kern.fold_batch(values, degree, active, src, sp, dp,
+                                         w, step)
+            for g, (i, k, *_rest) in enumerate(pending):
+                sink(i, k, A_b[g], cnt_b[g])
+        pending.clear()
+
+    for chunk in reader.stream(schedule):
+        i, k = chunk.src_shard, chunk.dst_shard
+        if state["cur"] is not None and state["cur"] != (i, k):
+            close_cur()  # the previous multi-chunk group just completed
+        if G > 1 and n_chunks[(i, k)] == 1:
+            # copy out of the reader's recycled staging buffers; the batch
+            # holds at most G chunks (modeled in the staging tier)
+            pending.append((i, k, np.array(chunk.sp), np.array(chunk.dp),
+                            np.array(chunk.w)))
+            if len(pending) == G:
+                flush_batch()
+            continue
+        if state["cur"] != (i, k):
+            flush_batch()  # batched groups precede this one in order
+            state["cur"] = (i, k)
+            state["A"] = comb.identity((P,), program.msg_dtype, dev)
+            state["cnt"] = torch.zeros(P, dtype=torch.int32, device=dev)
+        if not stager.room(chunk.sp.size):
+            fold_staged()
+        stager.add(chunk.sp, chunk.dp, chunk.w)
+    close_cur()
+    flush_batch()
+
+
 def _host_copy(t: torch.Tensor) -> np.ndarray:
     """A numpy array of ``t`` that shares no memory with it (a CPU tensor's
     ``numpy()`` does, and may alias a reader staging buffer)."""
@@ -881,88 +969,12 @@ class GraphDEngine:
 
     # -- streamed mode (out-of-core, paper §3 / Theorem 1) ---------------------
     def _fold_groups(self, values, active, step: int, schedule, sink):
-        """Fold staged edge chunks into per-(src, dst) group accumulators
-        (§5's A_s, one group at a time) and hand each COMPLETED group to
-        ``sink(src, dst, A_g, cnt_g)`` in schedule order. Shared by the
-        logged unpipelined superstep and the pipelined one.
-
-        Small groups (a single staged chunk) are folded ``group_batch`` at
-        a time through one batched call: per lane the same ops on a fresh
-        identity accumulator, so sinks see each group's unbatched result."""
-        program, pg, comb = self.program, self.pg, self.program.combiner
-        dev, stager = self.device, self._stager
-        G = max(1, self.group_batch)
-        CB = self._stream_reader.chunk_blocks
-        # chunks per (src, dst) group, known from the schedule up front
-        n_chunks = {(i, k): -(-len(ids) // CB) for i, k, ids in schedule}
-        slots = CB * pg.edge_block
-        pad = (np.full((slots,), -1, np.int32), np.zeros((slots,), np.int32),
-               np.zeros((slots,), np.float32))
-        pending: list = []  # copied single-chunk groups awaiting one call
-        state = {"cur": None, "A": None, "cnt": None}
-
-        def fold_staged():
-            if stager.pending:
-                i = state["cur"][0]
-                self._stream_fold(state["A"], state["cnt"], values[i],
-                                  pg.degree[i], active[i], *stager.take(),
-                                  step)
-
-        def close_cur():
-            if state["cur"] is not None:
-                fold_staged()
-                sink(state["cur"][0], state["cur"][1], state["A"],
-                     state["cnt"])
-                state["cur"] = None
-
-        def flush_batch():
-            if not pending:
-                return
-            if len(pending) == 1:
-                i, k, sp, dp, w = pending[0]
-                A_g, cnt_g = self._stream_fold(
-                    comb.identity((pg.P,), program.msg_dtype, dev),
-                    torch.zeros(pg.P, dtype=torch.int32, device=dev),
-                    values[i], pg.degree[i], active[i],
-                    *stager.put(sp, dp, w), step,
-                )
-                sink(i, k, A_g, cnt_g)
-            else:
-                lanes = pending + [(0, -1) + pad] * (G - len(pending))
-                src = torch.tensor([p[0] for p in lanes], device=dev)
-                for p in lanes:
-                    stager.add(*p[2:])
-                sp, dp, w = (x.view(G, slots) for x in stager.take())
-                A_b, cnt_b = self._stream_fold_batch(
-                    values, pg.degree, active, src, sp, dp, w, step
-                )
-                for g, (i, k, *_rest) in enumerate(pending):
-                    sink(i, k, A_b[g], cnt_b[g])
-            pending.clear()
-
-        for chunk in self._stream_reader.stream(schedule):
-            i, k = chunk.src_shard, chunk.dst_shard
-            if state["cur"] is not None and state["cur"] != (i, k):
-                close_cur()  # the previous multi-chunk group just completed
-            if G > 1 and n_chunks[(i, k)] == 1:
-                # copy out of the reader's recycled staging buffers; the
-                # batch holds at most G chunks (modeled in the staging tier)
-                pending.append((i, k, np.array(chunk.sp), np.array(chunk.dp),
-                                np.array(chunk.w)))
-                if len(pending) == G:
-                    flush_batch()
-                continue
-            if state["cur"] != (i, k):
-                flush_batch()  # batched groups precede this one in order
-                state["cur"] = (i, k)
-                state["A"] = comb.identity((pg.P,), program.msg_dtype, dev)
-                state["cnt"] = torch.zeros(pg.P, dtype=torch.int32, device=dev)
-            if not stager.room(chunk.sp.size):
-                fold_staged()
-            stager.add(chunk.sp, chunk.dp, chunk.w)
+        """:func:`fold_groups` over this engine's stacks, reader and
+        stager; the reader's pass is added to the superstep's StreamStats."""
+        fold_groups(self._kernels, self._stager, self._stream_reader,
+                    self.group_batch, self.pg.edge_block, values,
+                    self.pg.degree, active, step, schedule, sink)
         self._note_io()
-        close_cur()
-        flush_batch()
 
     def _note_io(self) -> None:
         """Add the reader's last pass to this superstep's StreamStats."""

@@ -24,8 +24,10 @@ The job owns, under one ``workdir``:
 and returns a :class:`JobResult` with the final values, the superstep
 history, and the realized-vs-planned memory model. The job runs on
 ``device`` (CUDA unless the caller names another). ``launch="threads"``
-runs the n shards in this process; ``launch="processes"`` (one worker
-process per shard) comes with slice 4 of the port and raises until then.
+runs the n shards in this process; ``launch="processes"`` runs one worker
+process per shard (``launch/procs.py``), each on ``device``, over the
+shared-filesystem transport; the socket transport comes with slice 4b of
+the port and raises until then.
 """
 
 from __future__ import annotations
@@ -54,11 +56,15 @@ from repro_torch.core.plan import (
 from repro_torch.device import resolve_device
 from repro_torch.graph.partition import partition_for_plan
 
-#: what ``launch="processes"`` needs and the port does not have yet
-PROCESSES_LATER = (
-    "launch='processes' (one worker process per shard, launch/procs.py) "
-    "comes with slice 4 of the port; use launch='threads'"
-)
+
+def _refuse_socket_opts(opts: dict) -> None:
+    """The socket transport, and with it its drills (``coord_kill``,
+    ``kill_net``, which ``validate_launch_opts`` admits only beside
+    ``transport="sockets"``), are slice 4b of the port."""
+    from repro_torch.launch.procs import SOCKETS_LATER
+
+    if opts.get("transport", "files") != "files":
+        raise NotImplementedError(SOCKETS_LATER)
 
 
 @dataclass
@@ -150,8 +156,6 @@ class GraphDJob:
             raise ValueError(
                 f"launch must be 'threads' or 'processes', got {launch!r}"
             )
-        if launch == "processes":
-            raise NotImplementedError(PROCESSES_LATER)
         self.device = resolve_device(device)
         self.program = program
         self.graph = graph
@@ -162,6 +166,7 @@ class GraphDJob:
         # surface of config.LAUNCH_OPT_FIELDS, validated here (and merged
         # over any opts the plan itself pinned, job args winning)
         self.launch_opts = validate_launch_opts(launch_opts, launch)
+        _refuse_socket_opts(self.launch_opts)
         # expert plans are materialized verbatim; only budget-derived plans
         # get their knobs re-derived against the realized geometry
         self._auto_planned = plan is None
@@ -169,9 +174,28 @@ class GraphDJob:
             plan = make_plan(program, GraphMeta.of(graph), budget,
                              edge_block=edge_block, vertex_pad=vertex_pad,
                              launch=launch)
+        elif launch == "processes" and plan.mode != "streamed":
+            raise ValueError(
+                "launch='processes' needs a mode='streamed' plan (workers "
+                f"stream their owner view from disk); got mode={plan.mode!r}"
+                " — re-plan with plan(..., launch='processes')"
+            )
+        if (launch == "processes"
+                and plan.config.channel.payload_scheme == "auto"):
+            # the auto-pick's first-superstep sample is engine-local state:
+            # n worker processes would each decide independently and their
+            # wire formats could diverge. Downgrade to the fixed lossless
+            # codec (keeping compression!) instead of rejecting the plan —
+            # the planner-layer resolution of the conflict that
+            # EngineConfig.finalize()/run_processes raise ConfigError for.
+            plan = dataclasses.replace(plan, config=dataclasses.replace(
+                plan.config, channel=dataclasses.replace(
+                    plan.config.channel, compress_payload="lossless"),
+            ))
         if plan.launch_opts:
             # plan-pinned deployment knobs are defaults; job args override
             self.launch_opts = {**plan.launch_opts, **self.launch_opts}
+            _refuse_socket_opts(self.launch_opts)
         if checkpoint_every is not None:
             # message logging (=> single-shard fast recovery) needs either a
             # combined A_s log or the streamed OMS run files; a combiner-less
@@ -327,11 +351,18 @@ class GraphDJob:
                     if self.store is not None else None)
             self.checkpointer.save(0, *self.engine.init(), meta=meta)
         try:
-            (values, active), history = self.engine.run(
-                max_supersteps=max_supersteps, state=self._state,
-                start_step=self._next_step, verbose=verbose,
-                checkpointer=self.checkpointer, on_step=on_step,
-            )
+            if self.launch == "processes":
+                from repro_torch.launch.procs import run_processes
+
+                (values, active), history = run_processes(
+                    self, max_supersteps, verbose=verbose, on_step=on_step,
+                )
+            else:
+                (values, active), history = self.engine.run(
+                    max_supersteps=max_supersteps, state=self._state,
+                    start_step=self._next_step, verbose=verbose,
+                    checkpointer=self.checkpointer, on_step=on_step,
+                )
         finally:
             # success or failure, leave no half-written superstep scratch
             # (inbox runs, OMS spills, outbox/announce records) behind
@@ -363,9 +394,28 @@ class GraphDJob:
             )
         target = self._next_step if target_step is None else target_step
         if self.plan.mode == "streamed":
+            log = self.message_log
+            if self.launch == "processes":
+                # each worker process logs into its own lineage
+                # (logs/shard-w) — one run-file index per writer. The failed
+                # shard's log holds every run addressed to it (its own
+                # included: the transport routes w→w through the outbox
+                # too), so replay reads just that lineage
+                comb = self.program.combiner
+                ch = self.plan.config.channel
+                log = RunFileMessageLog(
+                    os.path.join(self._dir("logs", self._tag),
+                                 f"shard-{failed}"))
+                log.configure(
+                    self.pg.n_shards, self.pg.P,
+                    numpy_dtype(self.program.msg_dtype),
+                    e0=comb.e0 if comb is not None else 0,
+                    combined=comb is not None, compress=ch.compress,
+                    compress_payload=ch.compress_payload,
+                )
             return recover_shard_streamed(
                 self.pg, self.program, failed, self.checkpointer,
-                self.message_log, self.store, target,
+                log, self.store, target,
             )
         return recover_shard(self.pg, self.program, failed,
                              self.checkpointer, self.message_log, target)
@@ -416,8 +466,9 @@ class GraphDJob:
     # -- teardown -------------------------------------------------------------
     def _sweep_scratch(self) -> None:
         """Drop per-superstep scratch (NOT checkpoints, logs, or streams):
-        the engine's inbox/OMS step dirs. Run on both the success and the
-        failure path so a crash mid-superstep cannot strand half-written
+        the engine's inbox/OMS step dirs and the multi-process transport's
+        outbox/announce/per-worker-inbox dirs. Run on both the success and
+        the failure path so a crash mid-superstep cannot strand half-written
         run files in a user-owned workdir."""
         eng = getattr(self, "engine", None)
         for d in (getattr(eng, "_inbox_dir", None),
@@ -427,6 +478,19 @@ class GraphDJob:
                     if name.startswith(("step-", "recover-")):
                         shutil.rmtree(os.path.join(d, name),
                                       ignore_errors=True)
+        procs_dir = self._dir("procs", getattr(self, "_tag", ""))
+        if os.path.isdir(procs_dir):
+            # the finished launch's exchange dirs. Post-mortem artifacts
+            # survive until the NEXT run's pre-spawn sweep:
+            # failure-summary.json, failures/, worker logs and quarantined
+            # (.quarantine) stores stay readable after a failed run returns.
+            for sub in ("outbox", "announce"):
+                shutil.rmtree(os.path.join(procs_dir, sub),
+                              ignore_errors=True)
+            for name in os.listdir(procs_dir):
+                if name.startswith("shard-"):
+                    shutil.rmtree(os.path.join(procs_dir, name, "inbox"),
+                                  ignore_errors=True)
 
     def close(self, delete: bool | None = None) -> None:
         """Release the workdir. ``delete`` defaults to True only when the

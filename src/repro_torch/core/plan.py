@@ -34,8 +34,8 @@ the RAM knob ladder and are shed under pressure. An over-constrained
 budget raises :class:`PlanInfeasible` carrying the most frugal candidate's
 per-tier byte breakdown.
 
-``launch="processes"`` plans for the multi-process deployment (slice 4 of
-the port runs it; the plan is the JAX package's already): every "per-shard" figure in the model then reads
+``launch="processes"`` plans for the multi-process deployment
+(``launch/procs.py``): every "per-shard" figure in the model then reads
 as per-PROCESS — ``ram_total`` is what ONE worker process keeps resident
 (its owner view of the edge streams is on disk, its state rows are O(P)),
 and ``net_total`` is what one process's NIC carries per superstep over the
@@ -285,12 +285,13 @@ def estimate_net_seconds(net_bytes: int, link_bytes_per_s: float) -> float:
 
 def measured_link_throughput(n_bytes: int = 8 << 20) -> float:
     """Probe the actual link (loopback TCP through the socket transport's
-    frame path). The socket transport (``launch/net.py``) comes with the
-    multi-process launch, slice 4 of the port; until then this raises."""
+    frame path). The socket transport (``launch/net.py``) comes with slice
+    4b of the port; until then this raises."""
     raise NotImplementedError(
         "measured_link_throughput probes the socket transport "
-        "(launch/net.py), which the port gains in slice 4 (the "
-        "multi-process launch); pass link_bytes_per_s= a measured figure"
+        "(launch/net.py), which the port gains in slice 4b (the "
+        "multi-process launch's TCP transport); pass link_bytes_per_s= a "
+        "measured figure"
     )
 
 

@@ -459,3 +459,43 @@ def test_streamed_job_and_recovery_on_card(cuda, tmp_path):
                    edge_block=32, workdir=str(tmp_path / "m")) as job:
         assert job.plan.mode == "recoded"
         assert job.run().values == res.values
+
+
+@pytest.mark.parametrize("name", ["hashmin", "pagerank"])
+def test_processes_job_on_card_matches_threads(cuda, tmp_path, name):
+    """GraphDJob(launch="processes") on the card: three worker processes,
+    each on the card, against the threads launch of the same plan (Hash-Min
+    exactly; PageRank within 1e-6 of its largest value, the fold's float
+    atomics being unordered on the card); then kill -9 of worker 1 in
+    superstep 2 respawns it alone to the undisturbed result."""
+    import copy
+
+    from repro_torch.core import GraphDJob, MemoryBudget, plan
+
+    g = rmat_graph(scale=9, edge_factor=8, seed=2)
+    prog = HashMin if name == "hashmin" else (lambda: PageRank(4))
+    p = plan(prog(), g, MemoryBudget(n_shards=3), edge_block=32,
+             launch="processes")
+    runs = {}
+    for launch in ("threads", "processes"):
+        with GraphDJob(prog(), g, plan=copy.deepcopy(p), launch=launch,
+                       workdir=str(tmp_path / launch)) as job:
+            res = job.run()
+            runs[launch] = (res, job._state)
+    (rt, (vt, at)), (rp, (vp, ap)) = runs["threads"], runs["processes"]
+    assert vp.device.type == "cuda"
+    assert [(h.n_active, h.n_msgs) for h in rp.history] == \
+           [(h.n_active, h.n_msgs) for h in rt.history]
+    assert torch.equal(ap, at)
+    if name == "hashmin":
+        assert torch.equal(vp, vt)
+    else:
+        assert float((vp - vt).abs().max()) < 1e-6 * float(vt.abs().max())
+        return
+    with GraphDJob(HashMin(), g, plan=copy.deepcopy(p), launch="processes",
+                   checkpoint_every=2, workdir=str(tmp_path / "drill"),
+                   launch_opts={"kill": {"shard": 1, "step": 2}}) as job:
+        res = job.run()
+        assert job._last_run_recoveries == 1
+        assert torch.equal(job._state[0], vt)
+        assert res.values == rt.values

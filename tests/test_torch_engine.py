@@ -200,14 +200,15 @@ def test_run_respects_max_supersteps_and_state():
 @pytest.mark.parametrize("launch,slice_", [("processes", "slice 4")])
 def test_later_modes_name_their_slice(launch, slice_):
     """The streamed mode, which slice 3 ported, finalizes to the torch
-    backend; the multi-process launch names the slice that brings it."""
+    backend; the multi-process launch's socket transport names the slice
+    that brings it (4b: slice 4a ported the file transport)."""
     cfg = tc.EngineConfig(mode="streamed").finalize()
     assert (cfg.mode, cfg.backend) == ("streamed", "torch")
     with pytest.raises(tc.ConfigError, match="needs mode='recoded'"):
         tc.EngineConfig(mode="streamed", backend="kernel").finalize()
     with pytest.raises(NotImplementedError, match=slice_):
         tc.GraphDJob(tc.PageRank(2), _graph(scale=5), launch=launch,
-                     device="cpu")
+                     launch_opts={"transport": "sockets"}, device="cpu")
 
 
 def test_slice2_modes_finalize_and_run():

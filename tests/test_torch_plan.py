@@ -263,10 +263,11 @@ def test_job_streamed_recover_and_rescale_match_reference(graphs, tmp_path):
 
 def test_later_slice_entry_points_name_slice_4(graphs):
     g_ref, g = graphs
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="slice 4b"):
         port_plan.measured_link_throughput()
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tc.GraphDJob(tc.HashMin(), g, launch="processes", device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 4b"):
+        tc.GraphDJob(tc.HashMin(), g, launch="processes", device="cpu",
+                     launch_opts={"transport": "sockets"})
     with pytest.raises(ValueError, match="launch must be"):
         tc.GraphDJob(tc.HashMin(), g, launch="nope", device="cpu")
     with pytest.raises(tc.ConfigError, match="launch_opts apply"):
