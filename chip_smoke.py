@@ -65,7 +65,19 @@ Phases, each of which ends the run non-zero on a failure:
     device memory (polled from ``/proc`` and ``nvidia-smi`` while the job
     runs) beside the planned per-process bytes; then the kill -9 drill at
     scale 20 (Hash-Min with checkpoints and message logs, shard 3 killed in
-    superstep 2, respawned alone, equal to an undisturbed processes run).
+    superstep 2, respawned alone, equal to an undisturbed processes run);
+13. the same two scale-24 jobs over the socket transport
+    (``launch_opts={"transport": "sockets"}``: 8 worker processes and a
+    coordinator process, messages over loopback TCP), each against phase
+    12's file-transport run of the same plan (Hash-Min, its bitmaps,
+    superstep stats and halt step exactly, PageRank within 1e-6 of its
+    largest value), with ms a superstep beside the files run's, each
+    worker's start to its first arrival, the bytes on the wire a superstep
+    and the coordinator process's resident set; then, at scale 20, an
+    undisturbed sockets run and the two socket drills, each against phase
+    12's undisturbed run: a worker killed with a frame half on the wire
+    (``kill_net``, one respawn of shard 1) and the coordinator killed in a
+    barrier (``coord_kill``, one coordinator respawn, no worker respawn).
 
 It prints the launch counts of the ``kernel`` run, and the per-kernel JSON
 line and the device line last. It needs a CUDA device and the CUDA toolkit,
@@ -1325,16 +1337,20 @@ PROCS_PAGERANK_TOL = 1e-6  # processes against threads, of the largest value
 
 class ProcsWatch:
     """What a running processes job does to the host and the card, polled
-    from outside it: the worker processes (found in /proc by their command
-    line, with their start time), each one's peak host RSS (``VmHWM``),
-    each compute app's device memory and the card's memory in use
-    (``nvidia-smi``), and the first heartbeat of each shard."""
+    from outside it: the worker processes and any coordinator process
+    (found in /proc by their command line, with their start time), each
+    one's peak host RSS (``VmHWM``, else the largest ``VmRSS`` seen), each
+    compute app's device memory and the card's memory in use
+    (``nvidia-smi``), and the first heartbeat of each shard (the file
+    transport's heartbeat files)."""
 
-    def __init__(self, coord_dir: str):
+    def __init__(self, procs_dir: str):
         import threading
 
-        self.coord_dir = coord_dir
+        self.procs_dir = procs_dir
+        self.coord_dir = os.path.join(procs_dir, "coord")
         self.workers: dict[int, dict] = {}  # pid -> shard, recover, start, hwm
+        self.coords: dict[int, dict] = {}  # pid -> incarnation, rss
         self.device_mib: dict[int, int] = {}  # pid -> peak used_memory
         self.card_mib = [None, 0]  # memory.used before, peak during
         self.first_beat: dict[int, float] = {}  # shard -> wall time
@@ -1375,6 +1391,15 @@ class ProcsWatch:
                 with open(f"/proc/{pid}/cmdline", "rb") as f:
                     argv = f.read().decode(errors="replace").split("\0")
                 if "repro_torch.launch.procs" not in argv:
+                    continue
+                if argv[argv.index("repro_torch.launch.procs") + 1] \
+                        == "coord":
+                    c = self.coords.setdefault(pid, dict(
+                        incarnation=int(argv[argv.index("--incarnation")
+                                             + 1]),
+                        rss_kib=0, rss_source=None))
+                    c["rss_kib"], c["rss_source"] = max(
+                        (c["rss_kib"], c["rss_source"]), self._rss(pid))
                     continue
                 if pid not in self.workers:
                     # start time: its clock ticks since boot, against the
@@ -1432,23 +1457,36 @@ class ProcsWatch:
             if used is not None:
                 self.card_mib[1] = max(self.card_mib[1], used)
 
-    def report(self, label: str, step0_dir: str, planned: dict) -> dict:
+    def first_arrival(self, shard: int):
+        """The wall clock of the first arrival in shard ``shard``'s worker
+        log (its first incarnation's: respawns append after it)."""
+        path = os.path.join(self.procs_dir, f"shard-{shard}", "worker.log")
+        try:
+            with open(path, errors="replace") as f:
+                for line in f:
+                    m = re.match(r"worker \d+: superstep \d+ arrived at wall "
+                                 r"clock ([0-9.]+)", line)
+                    if m:
+                        return float(m.group(1))
+        except OSError:
+            pass
+        return None
+
+    def report(self, label: str, planned: dict) -> dict:
         """Print one line per worker process: its start to its first
         heartbeat and first arrival, its peak RSS and device memory,
         beside the planned per-process bytes. Returns the figures."""
         rows = []
         for pid, w in sorted(self.workers.items(),
                              key=lambda kv: (kv[1]["shard"], kv[1]["start"])):
-            arrive = os.path.join(step0_dir, f"arrive-{w['shard']}.json")
+            first = w["recover_to"] is None
             # a respawn's beats continue its shard's file: not its first
-            beat = (self.first_beat.get(w["shard"])
-                    if w["recover_to"] is None else None)
+            beat = self.first_beat.get(w["shard"]) if first else None
+            arrive = self.first_arrival(w["shard"]) if first else None
             rows.append(dict(
                 pid=pid, shard=w["shard"], recover_to=w["recover_to"],
                 first_beat_s=(beat - w["start"]) if beat else None,
-                first_arrival_s=(os.path.getmtime(arrive) - w["start"]
-                                 if os.path.exists(arrive)
-                                 and w["recover_to"] is None else None),
+                first_arrival_s=(arrive - w["start"]) if arrive else None,
                 rss_bytes=w["rss_kib"] * 1024, rss_source=w["rss_source"],
                 device_bytes=(self.device_mib[pid] * 2**20
                               if pid in self.device_mib else None)))
@@ -1479,8 +1517,46 @@ class ProcsWatch:
               f"{peak} MiB during, {fmt(per_worker, '{} bytes')} a worker "
               f"process on average; compute apps that are not workers "
               f"(pid: MiB) {other}")
+        for pid, c in sorted(self.coords.items()):
+            print(f"{label}: coordinator process pid {pid} incarnation "
+                  f"{c['incarnation']}: peak RSS {c['rss_kib'] * 1024} bytes "
+                  f"({c['rss_source']}, polled each second)")
         return dict(workers=rows, card_mib=self.card_mib, other_apps=other,
-                    device_bytes_per_worker=per_worker)
+                    device_bytes_per_worker=per_worker,
+                    coords=[dict(pid=pid, incarnation=c["incarnation"],
+                                 rss_bytes=c["rss_kib"] * 1024)
+                            for pid, c in sorted(self.coords.items())])
+
+
+def procs_plan(prog, graph):
+    """The planner's processes plan for ``graph`` in SHARDS shards, at
+    256-block chunks (phases 12 and 13 run the same one)."""
+    import dataclasses
+
+    from repro_torch.core import MemoryBudget
+    from repro_torch.core import plan as make_plan
+
+    p = make_plan(prog, graph, MemoryBudget(n_shards=SHARDS),
+                  launch="processes")
+    check(p.mode == "streamed" and p.config.channel.full_duplex,
+          f"processes: planned {p.mode}, not full-duplex streamed")
+    stream = dataclasses.replace(p.config.stream, chunk_blocks=256)
+    return dataclasses.replace(p, config=dataclasses.replace(
+        p.config, stream=stream))
+
+
+def planned(job) -> dict:
+    """The plan's per-process bytes, and the fold stager's beside them."""
+    from repro_torch.core.plan import fold_stager_bytes
+
+    st = job.plan.config.stream
+    return dict(ram_total=job.plan.ram_total, model=job.plan.model,
+                stager=fold_stager_bytes(st.chunk_blocks, st.group_batch,
+                                         job.plan.edge_block))
+
+
+def steps_of(history) -> list:
+    return [(h.n_active, h.n_msgs) for h in history]
 
 
 def phase_processes(g, seed: int) -> dict:
@@ -1490,30 +1566,13 @@ def phase_processes(g, seed: int) -> dict:
     (its engine: the call GraphDJob.run makes under launch="threads", on
     the same spilled store and plan); then the kill -9 drill at scale
     ELASTIC_SCALE: Hash-Min with checkpoints and message logs, shard 3
-    killed in superstep 2, against an undisturbed processes run."""
-    import dataclasses
-
+    killed in superstep 2, against an undisturbed processes run. Returns
+    the figures, and under ``"files"`` what phase 13 holds its socket runs
+    to: each run's superstep stats, ms, values and bitmap (on the host),
+    and the scale-ELASTIC_SCALE graph."""
     import torch
-    from repro_torch.core import GraphDJob, HashMin, MemoryBudget, PageRank
-    from repro_torch.core import plan as make_plan
-    from repro_torch.core.plan import fold_stager_bytes
+    from repro_torch.core import GraphDJob, HashMin, PageRank
     from repro_torch.graph import rmat_graph
-
-    def job_plan(prog, graph, chunk_blocks=256):
-        p = make_plan(prog, graph, MemoryBudget(n_shards=SHARDS),
-                      launch="processes")
-        check(p.mode == "streamed" and p.config.channel.full_duplex,
-              f"processes: planned {p.mode}, not full-duplex streamed")
-        stream = dataclasses.replace(p.config.stream,
-                                     chunk_blocks=chunk_blocks)
-        return dataclasses.replace(p, config=dataclasses.replace(
-            p.config, stream=stream))
-
-    def planned(job):
-        st = job.plan.config.stream
-        return dict(ram_total=job.plan.ram_total, model=job.plan.model,
-                    stager=fold_stager_bytes(st.chunk_blocks, st.group_batch,
-                                             job.plan.edge_block))
 
     # the runtime alone, the baseline of the workers' start-up and RSS: a
     # fresh process that imports torch and opens a CUDA context
@@ -1533,19 +1592,21 @@ def phase_processes(g, seed: int) -> dict:
     print(f"processes: a fresh process imports torch and opens a CUDA "
           f"context in {probe_s:.3f} s, then holds {probe_rss} bytes "
           f"({probe_key})")
-    out = dict(runtime=dict(seconds=probe_s, rss_bytes=probe_rss))
+    files: dict = {}
+    out = dict(runtime=dict(seconds=probe_s, rss_bytes=probe_rss),
+               files=files)
     root = tempfile.mkdtemp(prefix=".chip_smoke-procs-", dir=ROOT)
     try:
         for name, prog in (("hashmin", HashMin), ("pagerank",
                                                   lambda: PageRank(3))):
             t0 = time.perf_counter()
-            job = GraphDJob(prog(), g, plan=job_plan(prog(), g),
+            job = GraphDJob(prog(), g, plan=procs_plan(prog(), g),
                             workdir=os.path.join(root, name),
                             launch="processes")
             setup_s = time.perf_counter() - t0
             check(job.device.type == "cuda", "processes: job off the card")
             procs_dir = job._dir("procs", "")
-            with ProcsWatch(os.path.join(procs_dir, "coord")) as watch:
+            with ProcsWatch(procs_dir) as watch:
                 t0 = time.perf_counter()
                 res = job.run()
                 procs_s = time.perf_counter() - t0
@@ -1556,8 +1617,7 @@ def phase_processes(g, seed: int) -> dict:
             torch.cuda.synchronize()
             threads_s = time.perf_counter() - t0
             label = f"processes {name}"
-            steps_p = [(h.n_active, h.n_msgs) for h in res.history]
-            steps_t = [(h.n_active, h.n_msgs) for h in hist]
+            steps_p, steps_t = steps_of(res.history), steps_of(hist)
             check(steps_p == steps_t, f"{label}: superstep stats or halt "
                   f"step differ from threads ({steps_p} vs {steps_t})")
             check(torch.equal(a_p, a_t),
@@ -1591,30 +1651,27 @@ def phase_processes(g, seed: int) -> dict:
             out[name] = dict(
                 setup_s=setup_s, processes_s=procs_s, threads_s=threads_s,
                 ms_processes=ms_p, ms_threads=[h.seconds * 1e3 for h in hist],
-                gap=gap, watch=watch.report(
-                    label, os.path.join(procs_dir, "coord", "step-000000"),
-                    planned(job)))
+                gap=gap, watch=watch.report(label, planned(job)))
+            files[name] = dict(steps=steps_p, ms=ms_p, seconds=procs_s,
+                               values=v_p.cpu(), active=a_p.cpu())
             job.close(delete=True)
             del v_p, a_p, v_t, a_t, job
         # the kill -9 drill
         g20 = rmat_graph(scale=ELASTIC_SCALE, edge_factor=16, seed=seed,
                          weights="uniform")
-        p = job_plan(HashMin(), g20)
+        p = procs_plan(HashMin(), g20)
         runs = {}
         for label, opts in (("undisturbed", None),
                             ("drill", {"kill": {"shard": 3, "step": 2}})):
             job = GraphDJob(HashMin(), g20, plan=p, checkpoint_every=2,
                             workdir=os.path.join(root, f"drill-{label}"),
                             launch="processes", launch_opts=opts)
-            with ProcsWatch(os.path.join(job._dir("procs", ""),
-                                         "coord")) as watch:
+            with ProcsWatch(job._dir("procs", "")) as watch:
                 t0 = time.perf_counter()
                 res = job.run()
                 secs = time.perf_counter() - t0
-            step0 = os.path.join(job._dir("procs", ""), "coord",
-                                 "step-000000")
             runs[label] = (res, job._state, job._last_run_recoveries, secs,
-                           watch.report(f"processes drill {label}", step0,
+                           watch.report(f"processes drill {label}",
                                         planned(job)))
             job.close(delete=True)
         (r0, (v0, a0), n0, s0, _), (r1, (v1, a1), n1, s1, w1) = (
@@ -1640,6 +1697,172 @@ def phase_processes(g, seed: int) -> dict:
               "stats equal")
         out["drill"] = dict(seconds=s1, undisturbed_s=s0,
                             recover_to=respawned[0][1])
+        files["undisturbed"] = dict(steps=steps_of(r0.history), seconds=s0,
+                                    values=v0.cpu(), active=a0.cpu())
+        files["graph"] = g20
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 13: the socket transport (launch_opts={"transport": "sockets"})
+# --------------------------------------------------------------------------
+
+SOCKETS = {"transport": "sockets"}
+
+
+def _socket_job(prog, graph, workdir: str, label: str, opts=None,
+                checkpoint_every=None):
+    """Run one sockets job under a ProcsWatch; returns (result, (values,
+    active) on the host, seconds, the job's audit counters, the watch's
+    report). Checks the run wrote no announce marker: no shared-filesystem
+    exchange."""
+    from repro_torch.core import GraphDJob
+
+    t0 = time.perf_counter()
+    job = GraphDJob(prog, graph, plan=procs_plan(prog, graph),
+                    workdir=workdir, launch="processes",
+                    launch_opts={**SOCKETS, **(opts or {})},
+                    checkpoint_every=checkpoint_every)
+    setup_s = time.perf_counter() - t0
+    check(job.device.type == "cuda", f"{label}: job off the card")
+    procs_dir = job._dir("procs", "")
+    try:
+        with ProcsWatch(procs_dir) as watch:
+            t0 = time.perf_counter()
+            res = job.run()
+            secs = time.perf_counter() - t0
+        check(not os.path.exists(os.path.join(procs_dir, "announce")),
+              f"{label}: the socket run wrote announce markers")
+        audit = dict(recoveries=job._last_run_recoveries,
+                     coord_restarts=job._last_run_coord_restarts,
+                     net=dict(job._last_run_net), setup_s=setup_s)
+        v, a = job._state
+        state = (v.cpu(), a.cpu())
+        report = watch.report(label, planned(job))
+    finally:
+        job.close(delete=True)
+    return res, state, secs, audit, report
+
+
+def phase_sockets(g, files: dict) -> dict:
+    """Phase 12's two scale-24 jobs over the socket transport, 8 worker
+    processes and one coordinator process, each against phase 12's
+    file-transport run of the same plan (kept in memory: this phase runs
+    no threads job); then, at scale ELASTIC_SCALE, an undisturbed sockets
+    run and the two socket drills against phase 12's undisturbed run."""
+    import torch
+    from repro_torch.core import HashMin, PageRank
+
+    out = {}
+    root = tempfile.mkdtemp(prefix=".chip_smoke-procs-", dir=ROOT)
+    try:
+        for name, prog in (("hashmin", HashMin),
+                           ("pagerank", lambda: PageRank(3))):
+            label = f"sockets {name}"
+            ref = files[name]
+            res, (v, a), secs, audit, rep = _socket_job(
+                prog(), g, os.path.join(root, name), label)
+            steps = steps_of(res.history)
+            check(steps == ref["steps"], f"{label}: superstep stats or halt "
+                  f"step differ from files ({steps} vs {ref['steps']})")
+            check(torch.equal(a, ref["active"]),
+                  f"{label}: active bitmap differs from files")
+            if name == "pagerank":
+                gap = float((v - ref["values"]).abs().max()) \
+                    / float(ref["values"].abs().max())
+                check(gap < PROCS_PAGERANK_TOL, f"{label}: {gap} of the "
+                      "largest value from files")
+            else:
+                gap = 0.0
+                check(torch.equal(v, ref["values"]),
+                      f"{label}: values differ from files")
+            check(audit["recoveries"] == 0 and audit["coord_restarts"] == 0,
+                  f"{label}: {audit['recoveries']} worker and "
+                  f"{audit['coord_restarts']} coordinator respawns")
+            shards = sorted(w["shard"] for w in rep["workers"])
+            check(shards == list(range(SHARDS)),
+                  f"{label}: worker processes seen for shards {shards}")
+            check(len(rep["coords"]) == 1, f"{label}: coordinator processes "
+                  f"seen {rep['coords']}")
+            net = audit["net"]
+            n = len(res.history)
+            ms = [h.seconds * 1e3 for h in res.history]
+            arrivals = [w["first_arrival_s"] for w in rep["workers"]]
+            print(f"{label}: {SHARDS} worker processes and a coordinator "
+                  f"process, {n} supersteps; set-up (partition and spill) "
+                  f"{audit['setup_s']:.1f} s; sockets {secs:.3f} s in all "
+                  f"against files {ref['seconds']:.3f} s; ms a superstep "
+                  "(superstep 0, spawn included, first) sockets "
+                  + ", ".join(f"{m:.1f}" for m in ms) + "; files "
+                  + ", ".join(f"{m:.1f}" for m in ref["ms"])
+                  + f"; start to first arrival "
+                  + ("not measured" if None in arrivals else
+                     f"{min(arrivals):.3f}-{max(arrivals):.3f} s")
+                  + f"; on the wire {net['net_wire_bytes']:.0f} bytes in "
+                  f"{net['net_frames']:.0f} frames, "
+                  f"{net['net_wire_bytes'] / n:.0f} bytes a superstep; "
+                  f"senders busy {net['net_send_s']:.3f} s, compute stalled "
+                  f"on them {net['net_stall_s']:.3f} s; "
+                  f"coordinator peak RSS "
+                  f"{rep['coords'][0]['rss_bytes']} bytes"
+                  + ("; values equal" if name == "hashmin" else
+                     f"; pagerank {gap:.4g} of its largest value from files")
+                  + "; superstep stats, bitmaps and halt step equal")
+            out[name] = dict(seconds=secs, ms=ms, gap=gap, net=net,
+                             first_arrival_s=arrivals,
+                             coord_rss=rep["coords"][0]["rss_bytes"])
+        # scale ELASTIC_SCALE: undisturbed, then the two drills
+        g20, ref = files["graph"], files["undisturbed"]
+        runs = {}
+        for label, opts in (
+                ("undisturbed", None),
+                ("kill_net", {"kill_net": {"shard": 1, "step": 2,
+                                           "after_frames": 1}}),
+                ("coord_kill", {"coord_kill": {"step": 1,
+                                               "after_arrivals": 1}})):
+            what = f"sockets drill {label}"
+            res, (v, a), secs, audit, rep = _socket_job(
+                HashMin(), g20, os.path.join(root, f"drill-{label}"), what,
+                opts=opts, checkpoint_every=2)
+            check(steps_of(res.history) == ref["steps"],
+                  f"{what}: superstep stats or halt step differ")
+            check(torch.equal(v, ref["values"])
+                  and torch.equal(a, ref["active"]),
+                  f"{what}: values or bitmap differ from phase 12's "
+                  "undisturbed run")
+            respawned = sorted((w["shard"], w["recover_to"])
+                               for w in rep["workers"]
+                               if w["recover_to"] is not None)
+            want = dict(undisturbed=(0, 0), kill_net=(1, 0),
+                        coord_kill=(0, 1))[label]
+            check((audit["recoveries"], audit["coord_restarts"]) == want,
+                  f"{what}: {audit['recoveries']} worker and "
+                  f"{audit['coord_restarts']} coordinator respawns, not "
+                  f"{want[0]} and {want[1]}")
+            if label == "kill_net":
+                check([s for s, _ in respawned] == [1],
+                      f"{what}: respawned {respawned}, not shard 1 alone")
+            runs[label] = dict(seconds=secs, respawned=respawned,
+                               coords=[c["incarnation"]
+                                       for c in rep["coords"]])
+        base = runs["undisturbed"]["seconds"]
+        print(f"sockets drills (scale {ELASTIC_SCALE}, Hash-Min, "
+              f"checkpoint_every 2, {len(ref['steps'])} supersteps, each "
+              "equal to phase 12's undisturbed files run in values, bitmaps "
+              f"and superstep stats): undisturbed sockets {base:.3f} s "
+              f"(files {ref['seconds']:.3f} s); kill_net (shard 1 SIGKILLed "
+              "with its second frame of superstep 2 half on the wire) "
+              f"{runs['kill_net']['seconds']:.3f} s, "
+              f"+{runs['kill_net']['seconds'] - base:.3f} s, respawned "
+              f"{runs['kill_net']['respawned']}; coord_kill (the "
+              "coordinator SIGKILLed in superstep 1's barrier after one "
+              f"arrival) {runs['coord_kill']['seconds']:.3f} s, "
+              f"+{runs['coord_kill']['seconds'] - base:.3f} s, coordinator "
+              f"incarnations seen {runs['coord_kill']['coords']}, no worker "
+              "respawn")
+        out["drills"] = runs
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return out
@@ -1698,7 +1921,8 @@ def main(argv=None) -> int:
                        if r["run"].startswith("recoded "))
     streamed = phase_streamed(pg, modes["ref"], recoded_peak)
     phase_streamed_small(args.seed, streamed["signature"])
-    phase_processes(g, args.seed)
+    procs = phase_processes(g, args.seed)
+    phase_sockets(g, procs["files"])
     for name, k in kernels.items():
         k["launches"] = launches[name]
     print(f"total {time.perf_counter() - t_start:.1f} s; card {built['power']}")

@@ -26,8 +26,8 @@ history, and the realized-vs-planned memory model. The job runs on
 ``device`` (CUDA unless the caller names another). ``launch="threads"``
 runs the n shards in this process; ``launch="processes"`` runs one worker
 process per shard (``launch/procs.py``), each on ``device``, over the
-shared-filesystem transport; the socket transport comes with slice 4b of
-the port and raises until then.
+shared-filesystem transport or, with ``launch_opts={"transport":
+"sockets"}``, over loopback TCP with a coordinator process of its own.
 """
 
 from __future__ import annotations
@@ -55,16 +55,6 @@ from repro_torch.core.plan import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.graph.partition import partition_for_plan
-
-
-def _refuse_socket_opts(opts: dict) -> None:
-    """The socket transport, and with it its drills (``coord_kill``,
-    ``kill_net``, which ``validate_launch_opts`` admits only beside
-    ``transport="sockets"``), are slice 4b of the port."""
-    from repro_torch.launch.procs import SOCKETS_LATER
-
-    if opts.get("transport", "files") != "files":
-        raise NotImplementedError(SOCKETS_LATER)
 
 
 @dataclass
@@ -166,7 +156,6 @@ class GraphDJob:
         # surface of config.LAUNCH_OPT_FIELDS, validated here (and merged
         # over any opts the plan itself pinned, job args winning)
         self.launch_opts = validate_launch_opts(launch_opts, launch)
-        _refuse_socket_opts(self.launch_opts)
         # expert plans are materialized verbatim; only budget-derived plans
         # get their knobs re-derived against the realized geometry
         self._auto_planned = plan is None
@@ -195,7 +184,6 @@ class GraphDJob:
         if plan.launch_opts:
             # plan-pinned deployment knobs are defaults; job args override
             self.launch_opts = {**plan.launch_opts, **self.launch_opts}
-            _refuse_socket_opts(self.launch_opts)
         if checkpoint_every is not None:
             # message logging (=> single-shard fast recovery) needs either a
             # combined A_s log or the streamed OMS run files; a combiner-less

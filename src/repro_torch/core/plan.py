@@ -285,14 +285,12 @@ def estimate_net_seconds(net_bytes: int, link_bytes_per_s: float) -> float:
 
 def measured_link_throughput(n_bytes: int = 8 << 20) -> float:
     """Probe the actual link (loopback TCP through the socket transport's
-    frame path). The socket transport (``launch/net.py``) comes with slice
-    4b of the port; until then this raises."""
-    raise NotImplementedError(
-        "measured_link_throughput probes the socket transport "
-        "(launch/net.py), which the port gains in slice 4b (the "
-        "multi-process launch's TCP transport); pass link_bytes_per_s= a "
-        "measured figure"
-    )
+    frame path, framing + CRC included) instead of proxying network cost
+    with disk bandwidth. Lazy import: the planner stays importable without
+    the launch layer."""
+    from repro_torch.launch.net import probe_link_throughput
+
+    return probe_link_throughput(n_bytes)
 
 
 # --------------------------------------------------------------------------

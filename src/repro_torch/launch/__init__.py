@@ -5,10 +5,18 @@ package is the other half of the claim:
 :func:`repro_torch.launch.procs.run_processes` starts ONE WORKER PROCESS PER
 SHARD, each opening only its owner view of the edge store, exchanging
 messages through the shared-filesystem run-file transport and synchronizing
-through the file-based coordinator barriers.
+through the file-based coordinator barriers, or, with
+``launch_opts={"transport": "sockets"}``, over loopback TCP
+(:mod:`repro_torch.launch.net`) with a coordinator process of its own.
 """
 
-__all__ = ["run_processes"]
+#: the socket transport's public names, all in ``repro_torch.launch.net``
+_NET = ("CoordClient", "CoordServer", "FrameError", "PeerSender",
+        "PeerServer", "TornFrame", "decode_run", "encode_run",
+        "probe_file_throughput", "probe_link_throughput", "recv_frame",
+        "send_frame")
+
+__all__ = ["run_processes", *_NET]
 
 
 def __getattr__(name):
@@ -19,4 +27,8 @@ def __getattr__(name):
         from repro_torch.launch.procs import run_processes
 
         return run_processes
+    if name in _NET:
+        from repro_torch.launch import net
+
+        return getattr(net, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

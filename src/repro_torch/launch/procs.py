@@ -1,7 +1,6 @@
 """True multi-process deployment: one worker process per shard.
 
-Port of ``repro/launch/procs.py`` over its shared-filesystem transport (the
-reference's default, ``launch_opts["transport"] = "files"``).
+Port of ``repro/launch/procs.py``, both transports.
 ``run_processes(job)`` turns a planned streamed
 :class:`~repro_torch.core.job.GraphDJob` into n real OS processes. Each
 worker opens ONLY its owner view of the edge store
@@ -29,16 +28,37 @@ exclusively through the shared filesystem:
   forward from the latest checkpoint over the worker's own message log
   (paper §3.4 / [19] single-shard fast recovery) and rejoins the barrier.
 
-The TCP transport (``launch/net.py``, the coordinator process and its
-write-ahead log) is slice 4b of the port; ``transport="sockets"`` raises.
+``launch_opts={"transport": "sockets"}`` swaps the shared-filesystem
+exchange for the TCP transport (``repro_torch.launch.net``): runs stream
+over persistent per-peer loopback connections while the fold is still
+producing (§4's transmit ∥ compute), receivers feed them straight into the
+same ChannelReceiver digest path, and the coordinator protocol rides one
+multiplexed connection per worker (pushed commits and aborts, in-band
+heartbeats). Each sender keeps the step's runs in a LOCAL per-step outbox
+store, the replay log the reconnect-with-resume handshake serves. The
+worker folds through the same ``fold_groups`` and digests in the same
+source-ascending order under both transports, so on the CPU the two give
+bit-identical results.
+
+Under the socket transport the coordinator is a separate OS process
+(``python -m repro_torch.launch.procs coord <spec_dir> --incarnation k``):
+it hosts the CoordServer and the superstep commit loop, write-ahead-logs
+every commit under ``procs_dir/coord-wal/`` and publishes its listening
+address to ``procs_dir/coord-addr.json``. It imports no torch and opens no
+CUDA context. The launcher is a thin supervisor: it respawns a crashed
+coordinator (bounded by ``coord_restart_limit``), respawns failed workers
+with ``--recover-to`` taken from the WAL, and tails the WAL into the run
+history. Workers reconnect to a respawned coordinator through the address
+file, so a ``kill -9`` of the coordinator mid-barrier loses nothing.
 
 Worker processes are started as ``python -m repro_torch.launch.procs worker
 <spec_dir> <shard>`` through ``subprocess`` (never a fork: the job process
 may hold a CUDA context). This module keeps its import-time dependencies to
 the standard library, numpy, the coordinator and the (stdlib-only) chaos
-layer, so a worker starts its heartbeat BEFORE paying the torch import. A
-worker whose spec names CUDA and that finds no card fails with a
-``no-device`` failure record; it never carries on on the CPU.
+layer, so a worker starts its heartbeat (and, under sockets, its peer
+server and coordinator client) BEFORE paying the torch import. A worker
+whose spec names CUDA and that finds no card fails with a ``no-device``
+failure record; it never carries on on the CPU.
 """
 
 from __future__ import annotations
@@ -50,8 +70,10 @@ import os
 import pickle
 import re
 import shutil
+import signal
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -62,9 +84,11 @@ from repro_torch.core.coordinator import (
 )
 from repro_torch.fault import (
     BlobCorruption,
+    FaultEvent,
     FaultInjector,
     FaultSchedule,
     RetryExhausted,
+    RetryPolicy,
     TierFault,
     failure_record,
     find_in_chain,
@@ -74,6 +98,7 @@ from repro_torch.fault import (
 SPEC = "spec.json"
 PROGRAM = "program.pkl"
 _STEP_DIR = re.compile(r"^step-(\d+)$")
+_WAL_COMMIT = re.compile(r"^commit-(\d+)\.json$")
 
 # respawn budget per run: recovery is for crashes, not crash loops
 MAX_RECOVERIES = 3
@@ -83,13 +108,10 @@ SPAWN_GRACE = 5.0
 # errnos that mean "a storage tier failed", not "a bug": classified as
 # TierFault so the failure record names the tier (spill vs checkpoint)
 _DISK_ERRNOS = frozenset({errno.ENOSPC, errno.EIO, errno.EDQUOT})
-
-#: what ``transport="sockets"`` needs and the port does not have yet
-SOCKETS_LATER = (
-    "the socket transport (launch/net.py, the coordinator process and its "
-    "write-ahead log) comes with slice 4b of the port; launch='processes' "
-    "runs over the shared-filesystem transport (transport='files')"
-)
+# the socket transport's per-step channel accounting, summed over the run
+# into ``job._last_run_net`` (all zero under the file transport)
+NET_TOTALS = ("net_send_s", "net_stall_s", "net_recv_s", "net_recv_stall_s",
+              "net_wire_bytes", "net_frames")
 
 
 class NoDevice(RuntimeError):
@@ -124,8 +146,24 @@ def _result_path(procs_dir: str, w: int) -> str:
     return os.path.join(procs_dir, "result", f"shard-{w}.npz")
 
 
+def _wal_dir(procs_dir: str) -> str:
+    return os.path.join(procs_dir, "coord-wal")
+
+
+def _coord_addr_path(procs_dir: str) -> str:
+    return os.path.join(procs_dir, "coord-addr.json")
+
+
 def _failure_path(procs_dir: str, w: int) -> str:
     return os.path.join(procs_dir, "failures", f"shard-{w}.json")
+
+
+def _recover_request_path(procs_dir: str, w: int) -> str:
+    return os.path.join(procs_dir, f"recover-{w}.json")
+
+
+def _abort_request_path(procs_dir: str) -> str:
+    return os.path.join(procs_dir, "abort-request.json")
 
 
 def _save_npz_atomic(path: str, **arrays) -> None:
@@ -153,7 +191,8 @@ def _src_root() -> str:
 def _write_spec(job, procs_dir: str, coord_dir: str, *, start_step: int,
                 target: int, bootstrap: str, ckpt_step: int | None,
                 heartbeat_interval: float, heartbeat_timeout: float,
-                faults=None) -> None:
+                transport: str = "files", coord_addr=None,
+                kill_net=None, **extra) -> None:
     from repro_torch.convert import numpy_dtype
 
     pg, cfg = job.pg, job.plan.config
@@ -162,11 +201,14 @@ def _write_spec(job, procs_dir: str, coord_dir: str, *, start_step: int,
         n_shards=int(pg.n_shards),
         P=int(pg.P),
         n_vertices=int(pg.n_vertices),
+        value_dtype=str(numpy_dtype(job.program.value_dtype)),
         msg_dtype=str(numpy_dtype(job.program.msg_dtype)),
         device=str(job.device),
         store_dir=job.store.dir,
         logs_dir=(job.message_log.dir if rec.log_messages else None),
         ckpt_dir=(job.checkpointer.dir if job.checkpointer else None),
+        ckpt_keep=(job.checkpointer.keep if job.checkpointer else 0),
+        store_signature=job.store.signature(),
         procs_dir=procs_dir,
         coord_dir=coord_dir,
         config=cfg.to_json(),
@@ -174,11 +216,15 @@ def _write_spec(job, procs_dir: str, coord_dir: str, *, start_step: int,
         log_messages=bool(rec.log_messages),
         start_step=int(start_step),
         target=int(target),
+        num_supersteps=job.program.num_supersteps,
         bootstrap=bootstrap,
         ckpt_step=ckpt_step,
         heartbeat_interval=heartbeat_interval,
         heartbeat_timeout=heartbeat_timeout,
-        faults=faults,
+        transport=transport,
+        coord_addr=coord_addr,
+        kill_net=kill_net,
+        **extra,
     )
     atomic_write_json(os.path.join(procs_dir, SPEC), spec)
     with open(os.path.join(procs_dir, PROGRAM), "wb") as f:
@@ -259,30 +305,37 @@ def run_processes(job, max_supersteps: int = 10_000, *,
         )
     n = pg.n_shards
     opts = validate_launch_opts(dict(job.launch_opts or {}))
-    if opts.get("transport", "files") != "files":
-        raise NotImplementedError(SOCKETS_LATER)
+    transport = opts.get("transport", "files")
     heartbeat_interval = float(opts.get("heartbeat_interval", 0.25))
     heartbeat_timeout = float(opts.get("heartbeat_timeout", 10.0))
     # crash drill (tests / CI): {"shard": w, "step": s} SIGKILLs worker w
     # mid-superstep s — after it announced its outbox, before it arrives
     kill_spec = opts.get("kill")
+    # alias for a faults= net.send torn_kill event; worker_main translates
+    # it into the schedule so one injector drives both
+    kill_net = opts.get("kill_net")
     can_recover = (job.checkpointer is not None
                    and cfg.recovery.log_messages)
 
     procs_dir = job._dir("procs", job._tag)
     coord_dir = os.path.join(procs_dir, "coord")
     # a fresh launch owns the transport namespace: stale barrier records,
-    # failure records or half-written outboxes from a previous (crashed)
-    # launch would open this run's barriers early or trip the supervisor
-    # into phantom recoveries
-    for sub in ("coord", "outbox", "announce", "result", "failures"):
+    # WAL commits, failure records or half-written outboxes from a previous
+    # (crashed) launch would open this run's barriers early or trip the
+    # supervisor into phantom recoveries
+    for sub in ("coord", "outbox", "announce", "result", "coord-wal",
+                "failures"):
         shutil.rmtree(os.path.join(procs_dir, sub), ignore_errors=True)
     if os.path.isdir(procs_dir):
         for name in os.listdir(procs_dir):
-            if name.startswith("shard-"):  # the local (log-less) inbox
-                shutil.rmtree(os.path.join(procs_dir, name, "inbox"),
-                              ignore_errors=True)
-            elif name == "failure-summary.json":
+            if name.startswith("shard-"):  # socket senders' per-step
+                # outbox + the local (log-less) inbox
+                for sub in ("outbox", "inbox"):
+                    shutil.rmtree(os.path.join(procs_dir, name, sub),
+                                  ignore_errors=True)
+            elif (name in ("coord-addr.json", "abort-request.json",
+                           "failure-summary.json", "coord.log")
+                  or name.startswith("recover-")):
                 try:
                     os.unlink(os.path.join(procs_dir, name))
                 except OSError:
@@ -338,12 +391,28 @@ def run_processes(job, max_supersteps: int = 10_000, *,
                 state = job.engine.init()
         return state, []
 
-    # the chaos schedule rides the spec into every worker
+    # socket tunables + chaos schedule ride the spec into every process
+    net = dict(
+        handshake_timeout=float(opts.get("handshake_timeout", 5.0)),
+        connect_timeout=float(opts.get("connect_timeout", 5.0)),
+        send_timeout=float(opts.get("send_timeout", 60.0)),
+        coord_connect_timeout=float(opts.get("coord_connect_timeout", 10.0)),
+        retry=opts.get("retry"),
+    )
     _write_spec(job, procs_dir, coord_dir, start_step=start_step,
                 target=target, bootstrap=bootstrap, ckpt_step=ckpt_step,
                 heartbeat_interval=heartbeat_interval,
                 heartbeat_timeout=heartbeat_timeout,
-                faults=opts.get("faults"))
+                transport=transport, coord_addr=None,
+                kill_net=kill_net, net=net, faults=opts.get("faults"),
+                coord_kill=opts.get("coord_kill"),
+                coord_addr_path=_coord_addr_path(procs_dir))
+    if transport == "sockets":
+        return _run_sockets(job, opts, n=n, procs_dir=procs_dir,
+                            start_step=start_step, target=target,
+                            restored_from=restored_from,
+                            can_recover=can_recover, verbose=verbose,
+                            on_step=on_step)
     coord = FileCoordinator(coord_dir, n,
                             heartbeat_interval=heartbeat_interval,
                             heartbeat_timeout=heartbeat_timeout)
@@ -353,6 +422,8 @@ def run_processes(job, max_supersteps: int = 10_000, *,
     grace = [0.0] * n
     recoveries = 0
     job._last_run_recoveries = 0  # audit: how many respawns this run took
+    job._last_run_coord_restarts = 0  # files: the launcher IS the coord
+    job._last_run_net = dict.fromkeys(NET_TOTALS, 0.0)  # no wire here
 
     def _spawn(w: int, recover_to: int | None = None) -> None:
         d = _shard_dir(procs_dir, w)
@@ -656,6 +727,429 @@ def _sweep_partial(spec: dict, shard: int) -> None:
 
 
 # --------------------------------------------------------------------------
+# socket-transport supervision (the coordinator is its own child process)
+# --------------------------------------------------------------------------
+
+def _read_wal_commit(wal: str, step: int) -> dict | None:
+    try:
+        with open(os.path.join(wal, f"commit-{step:06d}.json")) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def _wal_last_commit(wal: str) -> int:
+    last = -1
+    try:
+        names = os.listdir(wal)
+    except OSError:
+        return last
+    for name in names:
+        m = _WAL_COMMIT.match(name)
+        if m:
+            last = max(last, int(m.group(1)))
+    return last
+
+
+def _run_sockets(job, opts, *, n, procs_dir, start_step, target,
+                 restored_from, can_recover, verbose, on_step):
+    """Socket-transport launch: spawn the coordinator as its own process
+    (:func:`coord_main`) plus one worker per shard, then supervise. The
+    launcher holds NO barrier state (it tails the coordinator's WAL into
+    the run history), so ``kill -9`` on the coordinator costs exactly one
+    respawn (bounded by ``coord_restart_limit``) and zero committed
+    supersteps. A worker that exits with a ``no-device`` record fails the
+    run without a respawn: a new process would find the same host."""
+    import torch
+
+    from repro_torch.core.engine import SuperstepRecord
+
+    store = job.store
+    restart_limit = int(opts.get("coord_restart_limit", 3))
+    retry = RetryPolicy.from_opts(opts.get("retry"))
+    src_root = _src_root()
+    wal = _wal_dir(procs_dir)
+    addr_path = _coord_addr_path(procs_dir)
+    os.makedirs(wal, exist_ok=True)
+
+    procs: list[subprocess.Popen | None] = [None] * n
+    coord_proc = None
+    incarnation = 0
+    coord_restarts = 0
+    recoveries = 0
+    job._last_run_recoveries = 0
+    job._last_run_coord_restarts = 0
+
+    def _env():
+        env = dict(os.environ)
+        env["PYTHONPATH"] = src_root + os.pathsep + env.get("PYTHONPATH", "")
+        return env
+
+    def _spawn_coord() -> None:
+        nonlocal coord_proc
+        cmd = [sys.executable, "-m", "repro_torch.launch.procs", "coord",
+               procs_dir, "--incarnation", str(incarnation)]
+        with open(os.path.join(procs_dir, "coord.log"), "ab") as logf:
+            coord_proc = subprocess.Popen(cmd, stdout=logf,
+                                          stderr=subprocess.STDOUT,
+                                          env=_env())
+
+    def _wait_addr() -> None:
+        # trust only an address stamped with the CURRENT incarnation: a
+        # predecessor's file still names a dead port
+        deadline = time.monotonic() + max(retry.deadline, 30.0)
+        while True:
+            try:
+                with open(addr_path) as f:
+                    if int(json.load(f).get("incarnation", -1)) == \
+                            incarnation:
+                        return
+            except (OSError, ValueError):
+                pass
+            if coord_proc.poll() is not None:
+                raise WorkerFailed(
+                    -1, f"coordinator incarnation {incarnation} exited "
+                        f"with code {coord_proc.returncode} before "
+                        "publishing its address")
+            if time.monotonic() > deadline:
+                raise WorkerFailed(
+                    -1, f"coordinator incarnation {incarnation} never "
+                        "published its address")
+            time.sleep(0.05)
+
+    def _spawn(w: int, recover_to: int | None = None) -> None:
+        d = _shard_dir(procs_dir, w)
+        os.makedirs(d, exist_ok=True)
+        cmd = [sys.executable, "-m", "repro_torch.launch.procs", "worker",
+               procs_dir, str(w)]
+        if recover_to is not None:
+            cmd += ["--recover-to", str(recover_to)]
+        with open(os.path.join(d, "worker.log"), "ab") as logf:
+            procs[w] = subprocess.Popen(cmd, stdout=logf,
+                                        stderr=subprocess.STDOUT,
+                                        env=_env())
+
+    def _killall() -> None:
+        victims = [p for p in procs + [coord_proc] if p is not None]
+        for p in victims:
+            if p.poll() is None:
+                p.kill()
+        for p in victims:
+            try:
+                p.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                pass
+
+    def _abort_run(w: int, reason: str, record: dict | None = None) -> None:
+        write_record(os.path.join(procs_dir, "failure-summary.json"),
+                     failure_record("launch-failed", shard=w, message=reason,
+                                    record=record))
+        # ask the coordinator to abort (stragglers exit via K_ABORT if any
+        # survive the kill), then kill everything
+        atomic_write_json(_abort_request_path(procs_dir),
+                          dict(reason=str(reason)))
+        _killall()
+        raise WorkerFailed(w, reason, record=record)
+
+    def _respawn_worker(w: int, recover_to: int | None, why: str,
+                        record: dict | None = None) -> None:
+        nonlocal recoveries
+        if record is not None and record.get("kind") == "no-device":
+            # a respawn would find the same host: not a crash to recover
+            _abort_run(w, f"worker {w} {why}", record=record)
+        if not can_recover:
+            _abort_run(w, f"worker {w} {why} and the job has no checkpoint "
+                          "+ message-log recovery wiring "
+                          "(checkpoint_every=)", record=record)
+        if recoveries >= MAX_RECOVERIES:
+            _abort_run(w, f"worker {w} {why} after {recoveries} recoveries "
+                          "— crash loop, giving up", record=record)
+        recoveries += 1
+        job._last_run_recoveries = recoveries
+        p = procs[w]
+        if p is not None and p.poll() is None:
+            p.kill()
+            p.wait()
+        if recover_to is None:
+            recover_to = max(_wal_last_commit(wal) + 1, start_step)
+        if verbose:
+            print(f"  [procs] worker {w} {why}; respawning with "
+                  f"--recover-to {recover_to}")
+        _spawn(w, recover_to=recover_to)
+
+    history: list = []
+    net_totals = dict.fromkeys(NET_TOTALS, 0.0)
+    job._last_run_net = dict(net_totals)
+    nonempty = max(store.nonempty_blocks(), 1)
+    next_hist = start_step
+    ok = False
+
+    def _drain_wal() -> None:
+        nonlocal next_hist
+        while True:
+            rec = _read_wal_commit(wal, next_hist)
+            if rec is None:
+                return
+            s = int(rec["step"])
+            r = SuperstepRecord(
+                step=s, n_active=int(rec["n_active"]),
+                n_msgs=int(rec["n_msgs"]), agg=float(rec["agg"]),
+                density=float(rec.get("active_blocks", 0)) / nonempty,
+                mode="streamed", seconds=float(rec.get("seconds", 0.0)),
+                restored_from=restored_from if s == start_step else None,
+                blocks_read=int(rec.get("blocks_read", 0)),
+                cache_hits=int(rec.get("cache_hits", 0)),
+                cache_evictions=int(rec.get("cache_evictions", 0)),
+                blocks_skipped=int(rec.get("blocks_skipped", 0)),
+            )
+            history.append(r)
+            next_hist = s + 1
+            for key in net_totals:
+                net_totals[key] += float(rec.get(key, 0.0))
+            if verbose:
+                print(
+                    f"  superstep {s:4d}: active={r.n_active:>9d} "
+                    f"msgs={r.n_msgs:>10d} agg={r.agg:.6g} "
+                    f"density={r.density:.4f} "
+                    f"[streamed procs x{n}] {r.seconds*1e3:.1f} ms"
+                )
+            if on_step is not None:
+                on_step(r, None)
+
+    try:
+        _spawn_coord()
+        _wait_addr()
+        for w in range(n):
+            _spawn(w)
+        while True:
+            _drain_wal()
+            rc = coord_proc.poll()
+            if rc == 0:
+                break  # run complete: every result file landed
+            if rc == 2:
+                # coordinator aborted the run: surface the structured cause
+                reason = "run aborted"
+                try:
+                    with open(os.path.join(wal, "abort.json")) as f:
+                        reason = str(json.load(f)["reason"])
+                except (OSError, ValueError, KeyError):
+                    pass
+                record = None
+                for w in range(n):
+                    record = record or _read_failure(procs_dir, w)
+                _killall()
+                shard = (int(record["shard"])
+                         if record and record.get("shard") is not None
+                         else -1)
+                write_record(
+                    os.path.join(procs_dir, "failure-summary.json"),
+                    failure_record("launch-failed", shard=shard,
+                                   message=reason, record=record))
+                raise WorkerFailed(shard, reason, record=record)
+            if rc is not None:
+                # crashed (the kill -9 drill lands here): bounded respawn;
+                # the successor restores the WAL and resumes mid-run
+                if coord_restarts >= restart_limit:
+                    _abort_run(-1, f"coordinator crashed (exit {rc}) after "
+                                   f"{coord_restarts} restarts — giving up")
+                coord_restarts += 1
+                incarnation += 1
+                job._last_run_coord_restarts = coord_restarts
+                if verbose:
+                    print(f"  [procs] coordinator crashed (exit {rc}); "
+                          f"respawning incarnation {incarnation}")
+                _spawn_coord()
+                _wait_addr()
+            for w in range(n):
+                # the coordinator judges heartbeat staleness but cannot
+                # respawn processes; it files a recover request instead
+                req_path = _recover_request_path(procs_dir, w)
+                if os.path.exists(req_path):
+                    try:
+                        with open(req_path) as f:
+                            req = json.load(f)
+                    except (OSError, ValueError):
+                        req = None
+                    try:
+                        os.unlink(req_path)
+                    except OSError:
+                        pass
+                    if req is not None:
+                        _respawn_worker(
+                            w, int(req["recover_to"]),
+                            str(req.get("why", "went heartbeat-silent")),
+                            record=_read_failure(procs_dir, w))
+                        continue
+                p = procs[w]
+                if p is None or p.poll() is None:
+                    continue
+                if p.returncode in (0, 3):
+                    # 0: result written post-halt; 3: told to abort — the
+                    # cause surfaces through the coordinator exit path
+                    procs[w] = None
+                    continue
+                rec = _read_failure(procs_dir, w)
+                _respawn_worker(w, None,
+                                _describe_exit(rec, p.returncode,
+                                               _wal_last_commit(wal) + 1),
+                                record=rec)
+            time.sleep(0.05)
+        _drain_wal()
+        vals, acts = [], []
+        for w in range(n):
+            z = np.load(_result_path(procs_dir, w))
+            vals.append(z["values"])
+            acts.append(z["active"])
+        for p in procs:
+            if p is not None:
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+        ok = True
+    finally:
+        if not ok:
+            _killall()
+        job._last_run_net = net_totals
+    return ((torch.from_numpy(np.stack(vals)).to(job.device),
+             torch.from_numpy(np.stack(acts)).to(job.device)), history)
+
+
+# --------------------------------------------------------------------------
+# coordinator process (sockets transport; stdlib, numpy and launch.net)
+# --------------------------------------------------------------------------
+
+def coord_main(procs_dir: str, incarnation: int = 0) -> int:
+    """Host the CoordServer plus the barrier/commit loop as a standalone
+    process. Exit codes: 0 = run completed (every result file landed),
+    2 = run aborted (reason WAL-logged); anything else is a crash, which
+    the launcher answers with a successor incarnation: the successor
+    restores the WAL and carries on mid-run."""
+    with open(os.path.join(procs_dir, SPEC)) as f:
+        spec = json.load(f)
+    from repro_torch.launch.net import CoordServer
+
+    n = int(spec["n_shards"])
+    hb_t = float(spec["heartbeat_timeout"])
+    net = spec.get("net") or {}
+    coord = CoordServer(
+        n, heartbeat_timeout=hb_t,
+        handshake_timeout=float(net.get("handshake_timeout", 5.0)),
+        wal_dir=_wal_dir(procs_dir),
+    )
+    coord.start()
+    try:
+        # publish AFTER the WAL restore: a worker that reads this address
+        # may immediately CHELLO and expect restored commit state
+        atomic_write_json(_coord_addr_path(procs_dir),
+                          dict(incarnation=int(incarnation),
+                               addr=list(coord.addr)))
+        return _coord_loop(spec, coord, procs_dir, int(incarnation))
+    except RunAborted:
+        return 2
+    except Exception as e:
+        import traceback
+
+        traceback.print_exc()
+        coord.abort(f"coordinator failed: {e}")
+        return 2
+    finally:
+        coord.close()
+
+
+def _coord_loop(spec: dict, coord, procs_dir: str, incarnation: int) -> int:
+    n = int(spec["n_shards"])
+    start_step = int(spec["start_step"])
+    target = int(spec["target"])
+    every = int(spec["checkpoint_every"]) if spec.get("ckpt_dir") else 0
+    hb_t = float(spec["heartbeat_timeout"])
+    num_supersteps = spec.get("num_supersteps")
+    # the kill -9 drill arms in the first incarnation only: the successor
+    # must prove recovery, not re-die
+    drill = spec.get("coord_kill") if incarnation == 0 else None
+    abort_path = _abort_request_path(procs_dir)
+
+    def _poll_control() -> None:
+        """Abort requests degrade the run to a clean loud stop."""
+        coord.check_abort()
+        if os.path.exists(abort_path):
+            try:
+                with open(abort_path) as f:
+                    reason = str(json.load(f).get("reason",
+                                                  "abort requested"))
+            except (OSError, ValueError):
+                reason = "abort requested"
+            coord.abort(reason)
+            raise RunAborted(reason)
+
+    def _request_recover(step, got) -> None:
+        """File a recover request for every heartbeat-stale worker; the
+        launcher owns process lifecycles, so the respawn is its job. The
+        grace grant keeps the request from being refiled while the
+        replacement boots and reconnects."""
+        for w in range(n):
+            if w in got or not coord.stale(w):
+                continue
+            recover_to = max(coord.last_commit_step() + 1, start_step)
+            atomic_write_json(
+                _recover_request_path(procs_dir, w),
+                dict(shard=w, recover_to=recover_to,
+                     why=f"went heartbeat-silent (> {hb_t:.1f}s) "
+                         f"mid-superstep {step}"))
+            coord.grant_grace(w, hb_t + SPAWN_GRACE)
+
+    # resume: never re-run a superstep the WAL already committed — workers
+    # past that barrier would strand. Arrivals for the current (in-flight)
+    # step are replayed by the reconnecting clients.
+    last = coord.last_commit_step()
+    start = max(last + 1, start_step)
+    halted = last >= 0 and bool(coord.commit(last).get("halt"))
+
+    if not halted:
+        for s in range(start, target):
+            t0 = time.perf_counter()
+            while True:
+                got = coord.arrivals(s)
+                if (drill is not None and int(drill["step"]) == s
+                        and len(got) >= int(drill.get("after_arrivals", 1))):
+                    # mid-barrier kill -9: arrivals received, commit not
+                    # yet WALed — the successor must re-collect them
+                    os.kill(os.getpid(), signal.SIGKILL)
+                if len(got) == n:
+                    break
+                _poll_control()
+                _request_recover(s, got)
+                time.sleep(0.05)
+            totals = coord.reduce_arrivals(got)
+            ckpt_landed = False
+            if every and (s + 1) % every == 0:
+                _finalize_checkpoint_dir(
+                    spec["ckpt_dir"], s + 1, n, int(spec["P"]),
+                    spec["value_dtype"], spec.get("store_signature"),
+                    keep=int(spec.get("ckpt_keep", 2)) or 2,
+                )
+                ckpt_landed = True
+            halt = ((num_supersteps is None and totals["n_active"] == 0)
+                    or s + 1 >= target)
+            coord.publish_commit(
+                s, totals, halt=halt, ckpt_landed=ckpt_landed,
+                extra=dict(seconds=time.perf_counter() - t0))
+            if halt:
+                break
+
+    # wait for every worker's result file; a worker that dies between its
+    # last commit and the result write is recovered like any other
+    while True:
+        missing = [w for w in range(n)
+                   if not os.path.exists(_result_path(procs_dir, w))]
+        if not missing:
+            return 0
+        _poll_control()
+        _request_recover("result", set(range(n)) - set(missing))
+        time.sleep(0.05)
+
+
+# --------------------------------------------------------------------------
 # worker (runs in its own process; everything below main() may import torch)
 # --------------------------------------------------------------------------
 
@@ -674,10 +1168,13 @@ def _latest_checkpoint_step(ckpt_dir: str, at_most: int) -> int | None:
 
 
 class _Worker:
-    """One shard's superstep loop over the shared-filesystem transport, on
-    the device the spec names."""
+    """One shard's superstep loop, on the device the spec names, over
+    either transport: shared-filesystem run files (default) or the TCP
+    socket layer (``server`` is its PeerServer and a PeerSender transmit
+    thread is wired to it)."""
 
-    def __init__(self, spec: dict, program, shard: int, coord):
+    def __init__(self, spec: dict, program, shard: int, coord,
+                 server=None, peer_addrs=None):
         import torch
 
         from repro_torch.core.checkpoint import RunFileMessageLog
@@ -743,6 +1240,46 @@ class _Worker:
             )
         # slice-cap growth persists across supersteps, like the engine's
         self._slice_cap_eff = self.cfg.spill.slice_cap
+        # -- socket transport wiring (None under the file transport) -------
+        self.server = server
+        self.sender = None
+        self.net_stats = None
+        if server is not None:
+            from repro_torch.launch.net import PeerSender
+            from repro_torch.streams.channel import ChannelStats
+            from repro_torch.streams.msgstore import MessageRunStore
+
+            self.net_stats = ChannelStats()
+            outbox_root = os.path.join(_shard_dir(self.procs_dir, shard),
+                                       "outbox")
+            n, P = self.n, self.P
+            cfg, comb, mdt = self.cfg, self.comb, self.msg_dtype
+
+            def make_store(step):
+                # the sender's per-step replay log, in the SAME store
+                # transform as the file transport's outbox: what goes on
+                # the wire is what append_combined/append_raw produce
+                d = os.path.join(outbox_root, f"step-{step:06d}")
+                shutil.rmtree(d, ignore_errors=True)
+                return MessageRunStore(
+                    d, n, P, mdt, with_counts=comb is not None,
+                    compress=cfg.channel.compress,
+                    compress_payload=cfg.channel.compress_payload,
+                )
+
+            net = spec.get("net") or {}
+            self.sender = PeerSender(
+                shard, n, make_store, inflight=cfg.channel.inflight,
+                stats=self.net_stats, check_abort=coord.check_abort,
+                connect_timeout=float(net.get("connect_timeout", 5.0)),
+                send_timeout=float(net.get("send_timeout", 60.0)),
+                retry=RetryPolicy.from_opts(net.get("retry")),
+            )
+            self.sender.set_addrs(peer_addrs)
+            # a respawned peer's new data address flows straight into the
+            # transmit thread, which reconnects and resumes from its outbox
+            coord.on_peer_update = self.sender.update_addr
+            self.sender.start()
 
     # -- state bootstrap -------------------------------------------------------
     def bootstrap(self):
@@ -830,6 +1367,113 @@ class _Worker:
         obox.close()
         os.makedirs(os.path.dirname(marker), exist_ok=True)
         atomic_write_json(marker, dict(src=self.w, step=s))
+
+    def _send_net(self, s: int, values_w, active_w) -> None:
+        """Socket-transport send phase: the fold of :meth:`_send` (the same
+        ``fold_groups`` call, so the same folds of the same slots in the
+        same order), but each completed group goes to the PeerSender the
+        moment it is folded: the transmit thread appends it to the step's
+        outbox store (the replay log) and frames it onto the destination's
+        connection while the next group is still folding. The sender
+        queues the arrays without copying them, so each is a host copy
+        that shares no memory with a batch lane or a staging buffer. No
+        idempotence marker: re-sent runs after a respawn are deduplicated
+        by the resume protocol's sequence check."""
+        from repro_torch.core.engine import _host_copy, fold_groups
+
+        schedule = self._own_schedule(active_w)
+        self.residency.note_skipped(
+            self.own_nonempty
+            - sum(len(ids) for (_, _, ids) in schedule)
+        )
+        if self.comb is not None:
+            def sink(i, k, A_g, cnt_g):
+                self.sender.send_combined(k, _host_copy(A_g),
+                                          _host_copy(cnt_g), tag=i)
+
+            fold_groups(self.kern, self.stager, self.reader,
+                        self.cfg.stream.group_batch, self.edge_block,
+                        values_w[None], self.degree[None], active_w[None],
+                        s, schedule, sink, first_shard=self.w)
+        else:
+            for chunk in self.reader.stream(schedule):
+                msg, dp, valid = self.kern.msgs(
+                    values_w, self.degree, active_w,
+                    *self.stager.put(chunk.sp, chunk.dp, chunk.w), s,
+                )
+                self.sender.send_raw(chunk.dst_shard, _host_copy(dp),
+                                     _host_copy(msg), _host_copy(valid),
+                                     tag=self.w)
+        self.sender.end_step()
+
+    def _superstep_net(self, s: int, values_w, active_w, inbox):
+        """One socket-transport superstep: a reader thread drains the n
+        peer connections in ascending source order into the inbox (and the
+        ChannelReceiver digest, when combining) WHILE the fold transmits,
+        §4's full overlap, with the same digest sequence as the file path:
+        per source, runs land in sender append order; sources complete
+        ascending. Returns the engine-shaped ``(nv, na, nact, nm, ag)``."""
+        from repro_torch.streams.channel import ChannelReceiver
+
+        self.server.begin_step(s)
+        self.sender.begin_step(s)
+        comb, stats = self.comb, self.net_stats
+        receiver = None
+        if comb is not None:
+            receiver = ChannelReceiver(inbox, self._digest, self._identity,
+                                       comb.e0, stats=stats)
+
+        def on_run(hdr, dp, msg, cnt):
+            t0 = time.perf_counter()
+            lseg = inbox.append_run(
+                self.w, dp, msg,
+                cnt=cnt if comb is not None else None, tag=hdr["tag"])
+            if receiver is not None:
+                receiver.enqueue_digest(self.w, lseg)
+            # reader busy time overlaps the fold exactly like digest time
+            # (collect() accounts the stall side)
+            stats.recv_seconds += time.perf_counter() - t0
+
+        errs: list[BaseException] = []
+
+        def drain():
+            try:
+                for j in range(self.n):
+                    self.server.read_source(s, j, on_run,
+                                            self.coord.check_abort)
+                    if comb is None:
+                        # per-source compaction, same as the file path:
+                        # the run-table evolution the merge depends on
+                        inbox.compact_tag(self.w, j,
+                                          self.cfg.spill.merge_fanin,
+                                          self.cfg.spill.read_chunk)
+            except BaseException as e:  # surfaced on the compute thread
+                errs.append(e)
+
+        t = threading.Thread(target=drain, name="net-recv", daemon=True)
+        t.start()
+        try:
+            self._send_net(s, values_w, active_w)
+            while t.is_alive():
+                t.join(0.2)
+                self.sender.check_failed()
+                self.coord.check_abort()
+            if errs:
+                raise errs[0]
+            if comb is not None:
+                A_r, cnt = receiver.collect(self.w)
+                return self.kern.apply(
+                    values_w, self.degree, self.vmask, self.old_ids,
+                    self.gids, A_r, cnt, active_w, s, self.w,
+                )
+            acc_v, acc_a, cnt_k = self._apply_list_merged(
+                inbox, values_w, active_w, s)
+            nact, nm, ag = self.kern.finish(values_w, acc_v, acc_a, cnt_k,
+                                            self.vmask)
+            return acc_v, acc_a, nact, nm, ag
+        finally:
+            if receiver is not None:
+                receiver.close()
 
     # -- receive phase ---------------------------------------------------------
     def _open_inbox(self, s: int):
@@ -1023,16 +1667,25 @@ class _Worker:
             # residency layer — the counter deltas around the step are this
             # shard's contribution to the coordinator's SuperstepRecord
             h0, m0, e0, k0 = self.residency.counters()
+            st = self.net_stats
+            ns0 = ((st.send_seconds, st.stall_seconds, st.recv_seconds,
+                    st.recv_stall_seconds, st.wire_bytes, st.packets)
+                   if st is not None else None)
             inbox = None
             try:
-                self._send(s, values_w, active_w)
-                inbox = self._open_inbox(s)
-                if self.comb is not None:
-                    nv, na, nact, nm, ag = self._receive_combined(
+                if self.server is not None:
+                    inbox = self._open_inbox(s)
+                    nv, na, nact, nm, ag = self._superstep_net(
                         s, values_w, active_w, inbox)
                 else:
-                    nv, na, nact, nm, ag = self._receive_nocomb(
-                        s, values_w, active_w, inbox)
+                    self._send(s, values_w, active_w)
+                    inbox = self._open_inbox(s)
+                    if self.comb is not None:
+                        nv, na, nact, nm, ag = self._receive_combined(
+                            s, values_w, active_w, inbox)
+                    else:
+                        nv, na, nact, nm, ag = self._receive_nocomb(
+                            s, values_w, active_w, inbox)
             except OSError as e:
                 if e.errno in _DISK_ERRNOS:
                     # a spill/inbox blob write failed: name the tier so
@@ -1077,14 +1730,27 @@ class _Worker:
                 blocks_read=m1 - m0, cache_hits=h1 - h0,
                 cache_evictions=e1 - e0, blocks_skipped=k1 - k0,
             )
+            if ns0 is not None:  # per-step socket channel accounting deltas
+                stats.update(zip(NET_TOTALS, (
+                    st.send_seconds - ns0[0], st.stall_seconds - ns0[1],
+                    st.recv_seconds - ns0[2], st.recv_stall_seconds - ns0[3],
+                    st.wire_bytes - ns0[4], st.packets - ns0[5])))
             coord.arrive(s, w, stats)
+            # the arrival on the wall clock, in this worker's log: where a
+            # start-up measurement reads it under either transport
+            wall = time.time()  # analysis: allow[liveness-clock] a log line, never a deadline
+            print(f"worker {w}: superstep {s} arrived at wall clock "
+                  f"{wall:.6f}", flush=True)
             cm = coord.wait_commit(s, w)
             if self.log is not None and cm.get("ckpt_landed"):
                 self.log.gc_before(s + 1)
             # every peer has consumed this step's messages (they arrived
             # before the commit could exist) — reclaim the outbox
-            shutil.rmtree(_outbox_dir(self.procs_dir, s, w),
-                          ignore_errors=True)
+            if self.sender is not None:
+                self.sender.finish_step(s)
+            else:
+                shutil.rmtree(_outbox_dir(self.procs_dir, s, w),
+                              ignore_errors=True)
             if cm.get("halt"):
                 break
         self._write_result(values_w, active_w)
@@ -1096,30 +1762,88 @@ class _Worker:
                          active=active_w.cpu().numpy())
 
 
+def _close_net(sender, server, coord, shard: int) -> None:
+    """Close the worker's socket-transport pieces in dependency order
+    (sender first: its transmit thread may still hold peer connections).
+    Every failure is reported, only the first propagates: a close error
+    must not shadow the ones after it."""
+    first: BaseException | None = None
+    for res in (sender, server, coord):
+        if res is None:
+            continue
+        try:
+            res.close()
+        except Exception as e:
+            print(f"worker {shard}: net close failed: {e}", file=sys.stderr)
+            if first is None:
+                first = e
+    if first is not None:
+        raise first
+
+
 def worker_main(spec_dir: str, shard: int,
                 recover_to: int | None = None) -> int:
     with open(os.path.join(spec_dir, SPEC)) as f:
         spec = json.load(f)
     n = int(spec["n_shards"])
+    transport = spec.get("transport", "files")
     # arm the chaos schedule — FIRST incarnation only: the spec is shared
     # by every incarnation and a respawn must prove recovery, not re-trip
     # the drill that killed its predecessor
     if recover_to is None:
         sched = FaultSchedule.from_opts(spec.get("faults"))
+        kn = spec.get("kill_net")
+        if kn is not None and int(kn.get("shard", -1)) == int(shard):
+            # the kill_net alias, as a schedule event: header + half the
+            # payload on the wire, then SIGKILL
+            sched.events.append(FaultEvent(
+                site="net.send", kind="torn_kill", step=int(kn["step"]),
+                after=int(kn.get("after_frames", 0))))
         if sched.events:
             _fault.install(FaultInjector(sched, shard=int(shard)))
-    coord = FileCoordinator(
-        spec["coord_dir"], n,
-        heartbeat_interval=float(spec["heartbeat_interval"]),
-        heartbeat_timeout=float(spec["heartbeat_timeout"]),
-    )
-    # beat BEFORE the heavy imports below (unpickling the program imports
-    # repro_torch.core and torch): liveness must not depend on import time
-    coord.start_heartbeat(shard)
+    server = None
+    peer_addrs = None
+    net = spec.get("net") or {}
+    if transport == "sockets":
+        # stdlib-only wiring, started BEFORE the heavy imports below:
+        # liveness (heartbeats) and peer registration must not depend on
+        # the torch import's latency
+        from repro_torch.launch.net import CoordClient, PeerServer
+
+        start_step = (recover_to if recover_to is not None
+                      else int(spec["start_step"]))
+        server = PeerServer(
+            n, start_step=start_step,
+            handshake_timeout=float(net.get("handshake_timeout", 5.0)))
+        server.start()
+        coord = CoordClient(
+            tuple(spec["coord_addr"]) if spec.get("coord_addr") else None,
+            shard,
+            heartbeat_interval=float(spec["heartbeat_interval"]),
+            addr_file=spec.get("coord_addr_path"),
+            connect_timeout=float(net.get("coord_connect_timeout", 10.0)),
+            retry=RetryPolicy.from_opts(net.get("retry")),
+        )
+        coord.start()
+    else:
+        coord = FileCoordinator(
+            spec["coord_dir"], n,
+            heartbeat_interval=float(spec["heartbeat_interval"]),
+            heartbeat_timeout=float(spec["heartbeat_timeout"]),
+        )
+        # beat BEFORE the heavy imports below (unpickling the program
+        # imports repro_torch.core and torch): liveness must not depend on
+        # import time
+        coord.start_heartbeat(shard)
+    wk = None
     try:
+        if server is not None:
+            peer_addrs = coord.register(server.addr)
         with open(os.path.join(spec_dir, PROGRAM), "rb") as f:
             program = pickle.load(f)
-        _Worker(spec, program, shard, coord).run(recover_to=recover_to)
+        wk = _Worker(spec, program, shard, coord,
+                     server=server, peer_addrs=peer_addrs)
+        wk.run(recover_to=recover_to)
         return 0
     except RunAborted as e:
         print(f"worker {shard}: {e}", file=sys.stderr)
@@ -1140,6 +1864,12 @@ def worker_main(spec_dir: str, shard: int,
             write_record(_failure_path(spec["procs_dir"], int(shard)), rec)
             return 4
         return 1
+    finally:
+        # every socket-transport resource joins its threads on close (and
+        # raises on leak): a worker that cannot stop its net threads must
+        # exit nonzero, not pretend it shut down cleanly
+        _close_net(wk.sender if wk is not None else None, server,
+                   coord if transport == "sockets" else None, shard)
 
 
 def main(argv=None) -> int:
@@ -1149,7 +1879,13 @@ def main(argv=None) -> int:
     wk.add_argument("spec_dir")
     wk.add_argument("shard", type=int)
     wk.add_argument("--recover-to", type=int, default=None)
+    co = sub.add_parser("coord",
+                        help="run the coordinator process (sockets)")
+    co.add_argument("spec_dir")
+    co.add_argument("--incarnation", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.cmd == "coord":
+        return coord_main(args.spec_dir, args.incarnation)
     return worker_main(args.spec_dir, args.shard, args.recover_to)
 
 

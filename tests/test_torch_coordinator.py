@@ -1,10 +1,11 @@
 """The port's file-based coordinator (``repro_torch/core/coordinator.py``):
 twins of tests/test_coordinator.py (barriers with stragglers, backoff,
 shard-ascending reduction, heartbeat liveness of a SIGKILLed process, the
-abort poison pill), the worker's import path kept free of torch, triton,
-jax and ``repro`` (by a cold import and by ``repro.analysis``'s
-import-hygiene pass), and coordinator directories crossed between the two
-packages. The socket coordinator's boot-grace twin waits for slice 4b."""
+abort poison pill, and the restarted socket coordinator's boot grace), the
+worker's import path kept free of torch, triton, jax and ``repro`` (by a
+cold import and by ``repro.analysis``'s import-hygiene pass, whose roots
+include the socket transport), and coordinator directories crossed between
+the two packages."""
 
 import ast
 import os
@@ -192,6 +193,33 @@ class TestLiveness:
         atomic_write_json(coord.heartbeat_path(1), rec)
         assert coord.heartbeat_age(1) >= 0.05
 
+    def test_restarted_coord_server_grants_boot_grace(self):
+        """A successor CoordServer has seen NO beats at boot (every live
+        worker looks beat-less until its reconnect lands): a never-seen
+        shard only goes stale ``heartbeat_timeout + boot_grace`` after THIS
+        server booted, and an explicit ``grant_grace`` (the respawn path)
+        extends further."""
+        from repro_torch.launch.net import CoordServer
+
+        coord = CoordServer(3, heartbeat_timeout=0.1, boot_grace=0.3)
+        try:
+            # freshly booted: no worker has ever beaten, none is stale
+            assert all(coord.heartbeat_age(w) == float("inf")
+                       for w in range(3))
+            assert not any(coord.stale(w) for w in range(3))
+            time.sleep(0.15)  # past heartbeat_timeout, inside boot grace
+            assert not any(coord.stale(w) for w in range(3))
+            deadline = time.monotonic() + DEADLINE
+            while not coord.stale(0):  # boot grace expires -> stale
+                assert time.monotonic() < deadline, "boot grace never expired"
+                time.sleep(0.02)
+            # the respawn path's explicit grant waives staleness again
+            coord.grant_grace(0, 30.0)
+            assert not coord.stale(0)
+            assert coord.stale(1)  # ...but only for the granted shard
+        finally:
+            coord.close()
+
     def test_sigkilled_worker_process_goes_stale(self, coord):
         """A separate OS process heartbeats through the shared directory;
         kill -9 stops the beats and the staleness probe flips."""
@@ -278,7 +306,8 @@ def test_worker_import_path_is_torch_free():
 #: the port's pre-heartbeat roots, and what they must not reach eagerly
 #: (``repro`` matches the JAX package and its submodules, not repro_torch)
 PORT_WORKER_ROOTS = ("repro_torch.launch.procs",
-                     "repro_torch.core.coordinator")
+                     "repro_torch.core.coordinator",
+                     "repro_torch.launch.net")
 PORT_FORBIDDEN = ("torch", "triton", "jax", "jaxlib", "repro")
 
 

@@ -1,13 +1,16 @@
 """The port's kernels on the card against their plain versions, the
 engine's kernel backend against its torch backend on the card, the other
-in-memory modes and the recovery layer on the card against the CPU, and the
-flat skip() prefix at a size where n*P passes 2^24.
+in-memory modes and the recovery layer on the card against the CPU, the
+flat skip() prefix at a size where n*P passes 2^24, and the multi-process
+launch on the card over both transports.
 
 These tests need a CUDA device and skip without one. They import neither
 jax nor the JAX package, so they run on the GPU machine as they are:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -499,3 +502,61 @@ def test_processes_job_on_card_matches_threads(cuda, tmp_path, name):
         assert job._last_run_recoveries == 1
         assert torch.equal(job._state[0], vt)
         assert res.values == rt.values
+
+
+@pytest.mark.parametrize("case", ["against_files", "coord_kill"])
+def test_socket_transport_on_card(cuda, tmp_path, case):
+    """GraphDJob(launch="processes", transport="sockets") on the card:
+    three worker processes on the card and a coordinator process, against
+    the file transport's run of the same plan (Hash-Min exactly, PageRank
+    within 1e-6 of its largest value); then kill -9 of the coordinator in
+    superstep 1's barrier, which costs one coordinator respawn, no worker
+    respawn, and no change to the Hash-Min result."""
+    import copy
+
+    from repro_torch.core import GraphDJob, MemoryBudget, plan
+
+    g = rmat_graph(scale=9, edge_factor=8, seed=2)
+    p = plan(HashMin(), g, MemoryBudget(n_shards=3), edge_block=32,
+             launch="processes")
+    socks = {"transport": "sockets"}
+    if case == "against_files":
+        for name, prog in (("hashmin", HashMin),
+                           ("pagerank", lambda: PageRank(4))):
+            out = {}
+            for label, opts in (("files", None), ("sockets", socks)):
+                with GraphDJob(prog(), g, plan=plan(
+                        prog(), g, MemoryBudget(n_shards=3), edge_block=32,
+                        launch="processes"), launch="processes",
+                        launch_opts=opts,
+                        workdir=str(tmp_path / name / label)) as job:
+                    res = job.run()
+                    out[label] = (res, job._state)
+                    if label == "sockets":
+                        assert job._last_run_net["net_wire_bytes"] > 0
+                        assert not os.path.exists(os.path.join(
+                            job._dir("procs", job._tag), "announce"))
+            (rf, (vf, af)), (rs, (vs, as_)) = out["files"], out["sockets"]
+            assert vs.device.type == "cuda"
+            assert [(h.n_active, h.n_msgs) for h in rs.history] == \
+                   [(h.n_active, h.n_msgs) for h in rf.history]
+            assert torch.equal(as_, af)
+            if name == "hashmin":
+                assert torch.equal(vs, vf)
+            else:
+                assert float((vs - vf).abs().max()) < \
+                    1e-6 * float(vf.abs().max())
+        return
+    with GraphDJob(HashMin(), g, plan=copy.deepcopy(p),
+                   workdir=str(tmp_path / "ref")) as ref:
+        r_ref = ref.run()
+    with GraphDJob(HashMin(), g, plan=copy.deepcopy(p), launch="processes",
+                   checkpoint_every=2, workdir=str(tmp_path / "drill"),
+                   launch_opts={**socks, "coord_kill": {
+                       "step": 1, "after_arrivals": 1}}) as job:
+        res = job.run()
+        assert job._last_run_coord_restarts == 1
+        assert job._last_run_recoveries == 0
+        assert res.values == r_ref.values
+        assert [(h.n_active, h.n_msgs) for h in res.history] == \
+               [(h.n_active, h.n_msgs) for h in r_ref.history]

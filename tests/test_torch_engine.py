@@ -200,15 +200,19 @@ def test_run_respects_max_supersteps_and_state():
 @pytest.mark.parametrize("launch,slice_", [("processes", "slice 4")])
 def test_later_modes_name_their_slice(launch, slice_):
     """The streamed mode, which slice 3 ported, finalizes to the torch
-    backend; the multi-process launch's socket transport names the slice
-    that brings it (4b: slice 4a ported the file transport)."""
+    backend; the multi-process launch over the socket transport, which
+    slice 4 ported (4a the file transport, 4b the sockets), builds its
+    processes job with the options as given."""
     cfg = tc.EngineConfig(mode="streamed").finalize()
     assert (cfg.mode, cfg.backend) == ("streamed", "torch")
     with pytest.raises(tc.ConfigError, match="needs mode='recoded'"):
         tc.EngineConfig(mode="streamed", backend="kernel").finalize()
-    with pytest.raises(NotImplementedError, match=slice_):
-        tc.GraphDJob(tc.PageRank(2), _graph(scale=5), launch=launch,
-                     launch_opts={"transport": "sockets"}, device="cpu")
+    with tc.GraphDJob(tc.PageRank(2), _graph(scale=5), launch=launch,
+                      launch_opts={"transport": "sockets"},
+                      device="cpu") as job:
+        assert job.launch == launch == "processes"
+        assert job.launch_opts == {"transport": "sockets"}
+        assert job.plan.mode == "streamed" and job.plan.launch == launch
 
 
 def test_slice2_modes_finalize_and_run():

@@ -262,12 +262,15 @@ def test_job_streamed_recover_and_rescale_match_reference(graphs, tmp_path):
 
 
 def test_later_slice_entry_points_name_slice_4(graphs):
+    """The entry points slice 4b brought: the measured link probe returns
+    a positive rate through the socket frame path, and a sockets job
+    builds; bad launch names and launch_opts beside threads still raise."""
     g_ref, g = graphs
-    with pytest.raises(NotImplementedError, match="slice 4b"):
-        port_plan.measured_link_throughput()
-    with pytest.raises(NotImplementedError, match="slice 4b"):
-        tc.GraphDJob(tc.HashMin(), g, launch="processes", device="cpu",
-                     launch_opts={"transport": "sockets"})
+    assert port_plan.measured_link_throughput(n_bytes=1 << 20) > 0
+    with tc.GraphDJob(tc.HashMin(), g, launch="processes", device="cpu",
+                      launch_opts={"transport": "sockets"}) as job:
+        assert job.plan.mode == "streamed"
+        assert job.launch_opts == {"transport": "sockets"}
     with pytest.raises(ValueError, match="launch must be"):
         tc.GraphDJob(tc.HashMin(), g, launch="nope", device="cpu")
     with pytest.raises(tc.ConfigError, match="launch_opts apply"):

@@ -4,8 +4,9 @@ process per shard over the shared-filesystem transport) on the CPU: the
 bit-identical to the port's own ``launch="threads"`` full-duplex run of the
 same plan, and to the JAX package's threads run: integer, MIN and MAX
 programs exactly, PageRank within 1e-6), twins of the processes tests of
-tests/test_job.py, the socket transport's refusal (slice 4b), and a worker's
-outbox runs and per-worker message log opened by the JAX package's stores."""
+tests/test_job.py, the socket transport's launch options accepted as the
+JAX package accepts them, and a worker's outbox runs and per-worker message
+log opened by the JAX package's stores."""
 
 import copy
 import dataclasses
@@ -233,7 +234,7 @@ def test_job_processes_recover_shard_reads_the_worker_lineage(job_graph,
 
 
 # --------------------------------------------------------------------------
-# the socket transport waits for slice 4b
+# the socket transport's launch options
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("opts", [
@@ -242,17 +243,32 @@ def test_job_processes_recover_shard_reads_the_worker_lineage(job_graph,
     {"transport": "sockets", "coord_kill": {"step": 1}},
 ], ids=["transport", "kill_net", "coord_kill"])
 def test_socket_transport_names_slice_4b(job_graph, tmp_path, opts):
-    """``transport="sockets"`` and the socket-only drills raise at job
-    construction, before any partition or spill, naming slice 4b."""
-    workdir = str(tmp_path / "job")
-    with pytest.raises(NotImplementedError, match="slice 4b"):
-        tc.GraphDJob(tc.HashMin(), job_graph, launch="processes",
-                     launch_opts=opts, device="cpu", workdir=workdir)
-    assert not os.path.exists(os.path.join(workdir, "edges"))
-    # the same options are valid for the JAX package's validator
-    from repro.core.config import validate_launch_opts
+    """``transport="sockets"`` and the socket-only drills build a
+    processes job (the spill lands, the options ride on the job as given)
+    and validate exactly as the JAX package's validator does; the drills
+    are refused beside the file transport by both validators alike."""
+    from repro.core.config import ConfigError as RefConfigError
+    from repro.core.config import validate_launch_opts as ref_validate
+    from repro_torch.core.config import validate_launch_opts
 
-    assert validate_launch_opts(opts, "processes") == opts
+    workdir = str(tmp_path / "job")
+    with tc.GraphDJob(tc.HashMin(), job_graph, launch="processes",
+                      launch_opts=opts, device="cpu",
+                      workdir=workdir) as job:
+        assert job.launch_opts == opts
+        assert job.plan.mode == "streamed"
+        assert os.path.isdir(os.path.join(workdir, "edges"))
+    assert validate_launch_opts(opts, "processes") == \
+        ref_validate(opts, "processes") == opts
+    files = dict(opts, transport="files")
+    if len(opts) > 1:  # a sockets drill beside the file transport
+        with pytest.raises(tc.ConfigError, match="sockets-transport drill"):
+            validate_launch_opts(files, "processes")
+        with pytest.raises(RefConfigError, match="sockets-transport drill"):
+            ref_validate(files, "processes")
+    else:
+        assert validate_launch_opts(files, "processes") == \
+            ref_validate(files, "processes") == files
 
 
 # --------------------------------------------------------------------------
