@@ -31,7 +31,7 @@ Phases, each of which ends the run non-zero on a failure:
    the live run, and a run resumed from the checkpoint against the
    uninterrupted one;
 7. repartitioning 8 -> 6 -> 8 shards and topology mutation on a smaller RMAT
-   graph (scale 20, as the host work of rebuilding a partition grows with
+   graph (scale 19, as the host work of rebuilding a partition grows with
    |E|), against the run that was not rescaled;
 8. the skip() prefix: the flat scan against the row-wise one it replaced;
 9. two supersteps of the main path under ``torch.profiler``: PageRank's
@@ -40,15 +40,16 @@ Phases, each of which ends the run non-zero on a failure:
 10. the out-of-core ``streamed`` mode at the main partition's full width:
     its edge groups spilled from the card to a store on disk (in a
     ``.chip_smoke-streamed-*`` directory of the checkout, removed at the
-    end), then PageRank (2 supersteps at the default chunks, 5 at
-    256-block chunks) and Hash-Min to quiescence, unpipelined and through
+    end), then PageRank (1 superstep at the default chunks, 3 at
+    256-block chunks) and Hash-Min (1 superstep at the default chunks, to
+    quiescence at 256-block chunks), unpipelined and through
     the full-duplex channel at both chunk sizes, and a semi-external
     Hash-Min, each against a ``recoded`` run (Hash-Min exactly, PageRank
     within 1e-5 of its largest value), with its ms and edges/s, blocks and bytes read a superstep, the
     reader's wait, its peak device memory over what was allocated before
     (under 1.5 GiB and a third of ``recoded``'s peak) and the planner's
     memory model; no edge tensor of the streamed partition is on the card;
-11. the streamed paths whose host work grows fastest, on RMAT scale 20:
+11. the streamed paths whose host work grows fastest, on RMAT scale 19:
     Hash-Min over a compressed store and through the compressed channel,
     DistinctInLabels and SecondMinLabel through the message spill and
     external merge (against numpy), a ``GraphDJob`` whose memory budget
@@ -64,7 +65,7 @@ Phases, each of which ends the run non-zero on a failure:
     start to its first heartbeat and first arrival, peak host RSS and
     device memory (polled from ``/proc`` and ``nvidia-smi`` while the job
     runs) beside the planned per-process bytes; then the kill -9 drill at
-    scale 20 (Hash-Min with checkpoints and message logs, shard 3 killed in
+    scale 19 (Hash-Min with checkpoints and message logs, shard 3 killed in
     superstep 2, respawned alone, equal to an undisturbed processes run);
 13. the same two scale-24 jobs over the socket transport
     (``launch_opts={"transport": "sockets"}``: 8 worker processes and a
@@ -73,15 +74,30 @@ Phases, each of which ends the run non-zero on a failure:
     superstep stats and halt step exactly, PageRank within 1e-6 of its
     largest value), with ms a superstep beside the files run's, each
     worker's start to its first arrival, the bytes on the wire a superstep
-    and the coordinator process's resident set; then, at scale 20, an
+    and the coordinator process's resident set; then, at scale 19, an
     undisturbed sockets run and the two socket drills, each against phase
     12's undisturbed run: a worker killed with a frame half on the wire
     (``kill_net``, one respawn of shard 1) and the coordinator killed in a
-    barrier (``coord_kill``, one coordinator respawn, no worker respawn).
+    barrier (``coord_kill``, one coordinator respawn, no worker respawn);
+14. ``GraphDEngine(mesh=)`` through ``launch.mesh.run_mesh_cases``, one
+    process a shard over ``torch.distributed``: gloo with 8 ranks on the
+    first card and the main partition (PageRank 3 supersteps and Hash-Min
+    on the kernel backend, PageRank on ``basic``), then NCCL with one rank
+    a GPU where the machine has two or more (up to 8; the main graph
+    partitioned for that many), the same and SSSP, BFS and ``basic_sc``,
+    or with one GPU NCCL with one rank at scale 20; each against the
+    emulated run of the same partition (Hash-Min, SSSP and BFS exactly,
+    PageRank within 1e-5 of its largest value; bitmaps, message counts
+    and halt step exactly), each rank's bytes against the byte model from
+    the partition's shape (NCCL stages none through the host) and its
+    launches (n edge_combine and n-1 digest a superstep), with ms a
+    superstep past the first against the emulated run's, start-up, the
+    first GPU's memory and a rank's peak allocation.
 
 It prints the launch counts of the ``kernel`` run, and the per-kernel JSON
-line and the device line last. It needs a CUDA device and the CUDA toolkit,
-and runs on one card (``CUDA_VISIBLE_DEVICES`` defaults to 0).
+line and the device line last. It needs a CUDA device and the CUDA toolkit.
+Its own process runs on the first GPU the machine gives it (the first of
+``CUDA_VISIBLE_DEVICES``, else GPU 0); phase 14 spans them all.
 """
 
 from __future__ import annotations
@@ -111,7 +127,10 @@ PAGERANK_REL_TOL = 1e-5  # main path: max |kernel - torch| over max |torch|
 PAGERANK_RTOL = 1e-4  # main path: at every vertex
 COMPACT_RTOL = 2e-2  # recoded_compact: one bf16 rounding a message
 SHARDS = 8
-ELASTIC_SCALE = 20
+# the small graph of phases 7, 11 and the drills of 12-13 (20 before
+# phase 14 needed the room), and of the mesh's one-GPU run
+ELASTIC_SCALE = 19
+MESH_ONE_GPU_SCALE = 20
 
 
 class SmokeFailure(RuntimeError):
@@ -1071,6 +1090,12 @@ def streamed_run(eng, label: str, **kw):
     return out, hist, row
 
 
+def capped(program, supersteps: int):
+    """``program`` run for ``supersteps`` whatever its halting vote."""
+    program.num_supersteps = supersteps
+    return program
+
+
 def check_streamed(name: str, v, a, hist, ref, what: str) -> float:
     """A streamed run against the in-memory ``recoded`` run ``ref`` =
     (values, active, [(n_active, n_msgs)]): Hash-Min exactly, PageRank
@@ -1091,11 +1116,12 @@ def check_streamed(name: str, v, a, hist, ref, what: str) -> float:
 def phase_streamed(pg, ref: dict, recoded_peak_gib: float) -> dict:
     """mode='streamed' at the main partition's full width: its edge groups
     spilled to a store in a directory of this checkout (removed after),
-    then PageRank (2 supersteps) and Hash-Min to its halt, unpipelined and
+    then PageRank and Hash-Min (1 superstep each), unpipelined and
     through the full-duplex channel at the default StreamConfig, and
-    PageRank (5) and Hash-Min through the channel at 256-block chunks; a semi-external Hash-Min whose
-    hot-block cache holds some blocks, and both unpipelined at 256-block
-    chunks; each against phase 5's recoded run."""
+    PageRank (3) and Hash-Min through the channel at 256-block chunks; a
+    semi-external Hash-Min whose hot-block cache holds some blocks, and
+    both unpipelined at 256-block chunks; each against a recoded run as
+    deep (phase 5's for Hash-Min)."""
     from repro_torch.core import (
         ChannelConfig, EngineConfig, GraphDEngine, HashMin, PageRank,
         StreamConfig,
@@ -1111,18 +1137,21 @@ def phase_streamed(pg, ref: dict, recoded_peak_gib: float) -> dict:
         print(f"streamed: spilled {store.disk_bytes()} bytes of edge groups "
               f"in {spill_s:.1f} s (one (src, dst) group at a time from the "
               f"card); {store.nonempty_blocks()} non-empty blocks")
-        progs = (("pagerank", lambda: PageRank(5)), ("hashmin", HashMin))
+        progs = (("pagerank3", lambda: PageRank(3)), ("hashmin", HashMin))
         # at the default 8-block chunks the reader's cost a chunk (~65,700
         # chunks a dense superstep) hides everything else, the channel
         # included: the channel runs again at 256-block chunks, as do the
         # semi-external run and both programs unpipelined. There PageRank
-        # runs 2 supersteps (~18 s each), held to a recoded run of 2, to
-        # leave phase 12 room in the smoke's time
-        short = (("pagerank2", lambda: PageRank(2)), ("hashmin", HashMin))
-        (v2, a2), h2 = GraphDEngine(pg, PageRank(2), EngineConfig(
-            mode="recoded", backend="torch")).run()
-        ref = dict(ref, pagerank2=(v2, a2, [(h.n_active, h.n_msgs)
-                                           for h in h2]))
+        # and Hash-Min run 1 superstep each (~15-20 s), and PageRank 3 at
+        # 256-block chunks, each held to a recoded run as deep, to leave
+        # phases 12-14 room in the smoke's time
+        short = (("pagerank1", lambda: PageRank(1)),
+                 ("hashmin1", lambda: capped(HashMin(), 1)))
+        for name, prog in (*short, progs[0]):
+            (vs, as_), hs = GraphDEngine(pg, prog(), EngineConfig(
+                mode="recoded", backend="torch")).run()
+            ref = dict(ref, **{name: (vs, as_, [(h.n_active, h.n_msgs)
+                                                for h in hs])})
         big = StreamConfig(chunk_blocks=256)
         # the hot cache holds about a tenth of a shard's blocks
         cache = store.nonempty_blocks() // pg.n_shards // 10 \
@@ -1868,13 +1897,245 @@ def phase_sockets(g, files: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 14: the mesh, one process a shard over torch.distributed
+# --------------------------------------------------------------------------
+
+MESH_MAX_RANKS = 8
+
+
+def machine_gpus() -> list[str]:
+    """The GPUs this machine gives the smoke, as ``CUDA_VISIBLE_DEVICES``
+    names them where it is set, else one index a line of ``nvidia-smi
+    -L``: read before ``main`` narrows its own process to the first."""
+    env = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if env is not None:
+        return [x.strip() for x in env.split(",") if x.strip()]
+    try:
+        out = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                             text=True, timeout=60).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        return []
+    return [str(i) for i, line in enumerate(
+        x for x in out.splitlines() if x.startswith("GPU "))]
+
+
+class CardMemory:
+    """One GPU's memory in use (``nvidia-smi``, MiB): before, and the peak
+    polled every half second while the ``with`` block runs."""
+
+    def __init__(self, gpu: str):
+        import threading
+
+        self.gpu = gpu
+        self.before = self.peak = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+
+    def _read(self):
+        rows = ProcsWatch._smi("--query-gpu=memory.used", "-i", self.gpu)
+        return int(rows[0][0]) if rows and rows[0][0].isdigit() else None
+
+    def _poll(self):
+        while not self._stop.wait(0.5):
+            used = self._read()
+            if used is not None:
+                self.peak = max(self.peak or 0, used)
+
+    def __enter__(self):
+        self.before = self.peak = self._read()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=30)
+
+
+def mesh_cases(src: int, wide: bool):
+    """(label, program factory, EngineConfig) of phase 14; ``wide`` adds
+    SSSP and BFS on the kernel backend and basic_sc."""
+    from repro_torch.core import BFS, SSSP, EngineConfig, HashMin, PageRank
+
+    cases = [("pagerank-recoded-kernel", lambda: PageRank(3),
+              EngineConfig(backend="kernel")),
+             ("hashmin-recoded-kernel", HashMin,
+              EngineConfig(backend="kernel")),
+             ("pagerank-basic-torch", lambda: PageRank(3),
+              EngineConfig(mode="basic", backend="torch"))]
+    if wide:
+        cases += [("sssp-recoded-kernel", lambda: SSSP(src),
+                   EngineConfig(backend="kernel")),
+                  ("bfs-recoded-kernel", lambda: BFS(src),
+                   EngineConfig(backend="kernel")),
+                  ("pagerank-basic_sc-torch", lambda: PageRank(3),
+                   EngineConfig(mode="basic_sc", backend="torch"))]
+    return cases
+
+
+def mesh_bytes(case: str, pg, backend: str) -> dict:
+    """What a rank of an n-rank mesh hands its backend a superstep, from
+    the partition's shape: the ring's (n-1) rounds of a value and a count
+    a position, or basic's one all_to_all of a payload and a destination
+    an edge slot; PageRank's 4-byte aggregator, gathered; five 8-byte
+    reductions. Under gloo every byte goes to the host and back, the
+    gather bringing n partials back."""
+    n = pg.n_shards
+    if n == 1:
+        return dict(ring=0, all_to_all=0, gather=0, reduce=0, staged=0)
+    basic = "-basic-" in case
+    ring = 0 if basic else (n - 1) * pg.P * 8
+    a2a = n * pg.E_cap * 8 if basic else 0
+    gather = 4 if case.startswith("pagerank") else 0
+    staged = (2 * (ring + a2a) + (gather + 4 * n if gather else 0) + 2 * 40
+              if backend == "gloo" else 0)
+    return dict(ring=ring, all_to_all=a2a, gather=gather, reduce=40,
+                staged=staged)
+
+
+def run_mesh_phase(label: str, pg, src: int, backend: str, gpus: list,
+                   wide: bool) -> dict:
+    """Every case of :func:`mesh_cases` on one mesh of ``pg.n_shards``
+    ranks, each held against the emulated run of the same partition on the
+    card: Hash-Min, SSSP and BFS exactly, PageRank by ``check_pagerank``;
+    bitmaps, message counts a superstep and the halt step exactly; each
+    rank's bytes against :func:`mesh_bytes` and its kernel launches
+    against n edge_combine and n-1 digest a superstep. Prints ms a
+    superstep past the first (the slowest rank's) against the emulated
+    run's, start-up, the first GPU's memory and a rank's peak allocation."""
+    import torch
+    from repro_torch.core import GraphDEngine
+    from repro_torch.launch.mesh import run_mesh_cases
+
+    n = pg.n_shards
+    cases = mesh_cases(src, wide)
+    root = tempfile.mkdtemp(prefix=".chip_smoke-mesh-", dir=ROOT)
+    try:
+        with CardMemory(gpus[0]) as mem:
+            run = run_mesh_cases(pg, [(make(), cfg) for _, make, cfg in cases],
+                                 backend=backend, device="cuda", gpus=gpus,
+                                 workdir=root, timeout=600)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {"edge_combine": [0] * n, "digest": [0] * n}
+    for (case, make, cfg), res in zip(cases, run.results):
+        what = f"mesh {label} {case}"
+        (v, a), hist = GraphDEngine(pg, make(), cfg).run()
+        torch.cuda.synchronize()
+        steps = len(hist)
+        check([(h.n_active, h.n_msgs) for h in res.history]
+              == [(h.n_active, h.n_msgs) for h in hist],
+              f"{what}: superstep stats or halt step differ from the "
+              "emulated run")
+        check(torch.equal(res.active, a.cpu()),
+              f"{what}: active bitmap differs from the emulated run")
+        if case.startswith("pagerank"):
+            gap = check_pagerank(res.values, v.cpu(), f"{what}: pagerank")
+            # the card's own run-to-run spread, beside the mesh's gap:
+            # float atomics add in no fixed order
+            (v2, _), _ = GraphDEngine(pg, make(), cfg).run()
+            twin = float((v2 - v).abs().max()) / float(v.abs().max())
+            del v2
+        else:
+            check(torch.equal(res.values, v.cpu()),
+                  f"{what}: values differ from the emulated run")
+            gap = 0.0
+        model = mesh_bytes(case, pg, backend)
+        want = {k: b * steps for k, b in model.items()}
+        for r, rank in enumerate(res.ranks):
+            check(rank["bytes"] == want, f"{what}: rank {r} handed its "
+                  f"backend {rank['bytes']}, the byte model says {want}")
+            if cfg.backend == "kernel":
+                check(rank["launches"] == dict(edge_combine=n * steps,
+                                               digest=(n - 1) * steps),
+                      f"{what}: rank {r} launched {rank['launches']} in "
+                      f"{steps} supersteps")
+                for name, count in rank["launches"].items():
+                    launches[name][r] += count
+            else:
+                check(rank["launches"] == dict(edge_combine=0, digest=0),
+                      f"{what}: the torch backend launched a kernel")
+        past = lambda h: (sum(x.seconds for x in h[1:]) * 1e3
+                          / max(len(h) - 1, 1))
+        print(f"mesh {label} {case}: {steps} supersteps, "
+              f"{past(res.history):.3f} ms a superstep past the first (the "
+              f"slowest rank) against the emulated run's {past(hist):.3f}; "
+              "per-superstep ms of the slowest rank "
+              f"{[round(h.seconds * 1e3, 2) for h in res.history]}, of the "
+              f"emulated run {[round(h.seconds * 1e3, 2) for h in hist]}; "
+              f"each rank handed its backend {model} bytes a superstep, "
+              "equal to the byte model"
+              + (f"; pagerank gap over its largest value {gap:.4g}, and "
+                 f"{twin:.4g} between two emulated runs"
+                 if case.startswith("pagerank") else ""))
+        del v, a
+    start = {k: max(s[k] for s in run.startup) for k in run.startup[0]}
+    peak = max((r["peak_bytes"] for res in run.results for r in res.ranks
+                if r["peak_bytes"] is not None), default=None)
+    print(f"mesh {label}: {n} ranks over {backend} on CUDA_VISIBLE_DEVICES "
+          f"{sorted(set(run.devices))}; slices written in "
+          f"{run.slices_s:.3f} s, the ranks ran {run.seconds:.3f} s; start-up"
+          f" (the slowest rank's) spawn to the first superstep "
+          f"{start['spawn_to_first_s']:.3f} s: torch import "
+          f"{start['import_s']:.3f} s, rendezvous {start['rendezvous_s']:.3f}"
+          f" s, slice load {start['load_s']:.3f} s; GPU {gpus[0]}'s memory in "
+          f"use {mem.before} MiB before, peak {mem.peak} MiB during; a "
+          f"rank's peak allocated {peak} bytes")
+    return dict(launches=launches, run=run)
+
+
+def phase_mesh(g, pg, src: int, seed: int, gpus: list, power: str) -> dict:
+    """GraphDEngine(mesh=) through launch.mesh, one process a shard: always
+    gloo with 8 ranks on the first card, on the main partition (PageRank
+    3 supersteps and Hash-Min on the kernel backend, PageRank on basic);
+    then NCCL with one rank a GPU, up to 8, on the main graph partitioned
+    for that many (the main partition itself at 8), the same cases and
+    SSSP, BFS and basic_sc; on a machine with one GPU, NCCL with one rank
+    at scale MESH_ONE_GPU_SCALE. Returns each rank's kernel launches of the
+    gloo run."""
+    import torch
+    from repro_torch.graph import partition_graph, rmat_graph
+
+    nccl = torch.cuda.nccl.version()
+    nccl = ".".join(map(str, nccl)) if isinstance(nccl, tuple) else nccl
+    print(f"mesh: the machine gives {len(gpus)} GPU(s) {gpus}; NCCL {nccl};"
+          f" {power}")
+    gloo = run_mesh_phase(f"gloo x{pg.n_shards}", pg, src, "gloo",
+                          gpus[:1], wide=False)
+    n = min(len(gpus), MESH_MAX_RANKS)
+    label = f"nccl x{n}"
+    if n == pg.n_shards:
+        pgn, srcn = pg, src
+    elif n >= 2:
+        t0 = time.perf_counter()
+        pgn, rmap = partition_graph(g, n)
+        srcn = int(rmap.to_new(np.array([0]))[0])
+        print(f"mesh: the main graph partitioned for {n} ranks in "
+              f"{time.perf_counter() - t0:.1f} s: {pgn.shape_summary}")
+    else:
+        print("mesh: one GPU on this machine: NCCL with one rank, at scale "
+              f"{MESH_ONE_GPU_SCALE}; the multi-GPU check did not run")
+        g1 = rmat_graph(scale=MESH_ONE_GPU_SCALE, edge_factor=16, seed=seed,
+                        weights="uniform")
+        pgn, rmap = partition_graph(g1, 1)
+        srcn = int(rmap.to_new(np.array([0]))[0])
+        label += f" (RMAT scale {MESH_ONE_GPU_SCALE})"
+    run_mesh_phase(label, pgn, srcn, "nccl", gpus[:n], wide=True)
+    del pgn
+    return dict(launches_per_rank=gloo["launches"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=24)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     sys.stdout.reconfigure(line_buffering=True)  # progress survives a kill
-    os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")  # one card
+    gpus = machine_gpus()  # phase 14's mesh spans them all
+    print(f"machine: {len(gpus)} GPU(s) {gpus}; this process runs on the "
+          "first")
+    # one card for this process, whatever the machine has
+    os.environ["CUDA_VISIBLE_DEVICES"] = gpus[0] if gpus else "0"
 
     import torch
 
@@ -1923,8 +2184,10 @@ def main(argv=None) -> int:
     phase_streamed_small(args.seed, streamed["signature"])
     procs = phase_processes(g, args.seed)
     phase_sockets(g, procs["files"])
+    mesh = phase_mesh(g, pg, src, args.seed, gpus, built["power"])
     for name, k in kernels.items():
         k["launches"] = launches[name]
+        k["mesh_launches_per_rank"] = mesh["launches_per_rank"][name]
     print(f"total {time.perf_counter() - t_start:.1f} s; card {built['power']}")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -53,6 +53,13 @@ Backends:
 
 An in-memory superstep syncs with the host once, when ``run()`` reads its
 stats.
+
+With ``mesh=`` (a ``core.collectives.ProcessMesh``, one process a shard,
+the counterpart of the reference's ``shard_map``) the superstep functions
+run on one shard's rows: every tensor's leading axis is the local rows
+(``pg.n_rows``, 1 there) and ``pg.n_shards`` the destinations, and the
+collectives reach them as the ``comm`` argument, whose default is the
+emulated shim.
 """
 
 from __future__ import annotations
@@ -72,15 +79,15 @@ from repro_torch.core.api import ShardContext, VertexProgram
 from repro_torch.core.config import ConfigError, EngineConfig
 from repro_torch.core.plan import FOLD_RING, FOLD_SLOTS, fold_stager_slots
 from repro_torch.device import resolve_device
-from repro_torch.graph.partition import PartitionedGraph
+from repro_torch.graph.partition import PartitionedGraph, shard_slice
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.digest import digest as kernel_digest
 from repro_torch.kernels.edge_combine import edge_combine
 
 
-def _shard_ctx(pg: PartitionedGraph) -> ShardContext:
+def _shard_ctx(pg: PartitionedGraph, comm=coll) -> ShardContext:
     return ShardContext(
-        shard=coll.axis_index(pg.n_shards, pg.device),
+        shard=comm.axis_index(pg.n_rows, pg.device),
         n_shards=pg.n_shards,
         n_vertices=pg.n_vertices,
         P=pg.P,
@@ -160,19 +167,18 @@ def _combine_sort(program, P_dest, msg, dp, aact):
 
 def _contrib_dense(program, pg, values, active, step, dest,
                    combine=_combine_scatter):
-    ar = torch.arange(pg.n_shards, device=pg.device)
+    ar = torch.arange(pg.n_rows, device=pg.device)
     sp, dp, w = pg.src_pos[ar, dest], pg.dst_pos[ar, dest], pg.eweight[ar, dest]
     msg, aact = _gen_messages(program, values, pg.degree, sp, w, active, step)
     return combine(program, pg.P, msg, dp, aact)
 
 
 def _contrib_all(program, pg, values, active, step):
-    """Every shard's A_s and counts for all n destinations:
-    ``(n_src, n_dest, P)`` each."""
-    n = pg.n_shards
+    """Every local shard's A_s and counts for all n destinations:
+    ``(rows, n_dest, P)`` each."""
     parts = [_contrib_dense(program, pg, values, active, step,
-                            torch.full((n,), d, device=pg.device))
-             for d in range(n)]
+                            torch.full((pg.n_rows,), d, device=pg.device))
+             for d in range(pg.n_shards)]
     return (torch.stack([A for A, _ in parts], 1),
             torch.stack([c for _, c in parts], 1))
 
@@ -180,8 +186,8 @@ def _contrib_all(program, pg, values, active, step):
 def _contrib_sparse(program, pg, values, active, prefix, step, dest, cap,
                     combine=_combine_scatter):
     """skip(): gather only the first ``cap`` active edge blocks per group."""
-    n, B, nb = pg.n_shards, pg.edge_block, pg.n_blocks
-    ar = torch.arange(n, device=pg.device)[:, None]
+    rows, n, B, nb = pg.n_rows, pg.n_shards, pg.edge_block, pg.n_blocks
+    ar = torch.arange(rows, device=pg.device)[:, None]
     act_blk = _block_active(prefix, pg.blk_lo[ar[:, 0], dest],
                             pg.blk_hi[ar[:, 0], dest])
     idx, n_act = kops.compact_blocks(act_blk)
@@ -189,8 +195,8 @@ def _contrib_sparse(program, pg, values, active, prefix, step, dest, cap,
     live = (torch.arange(idx.shape[1], device=pg.device)[None, :]
             < n_act[:, None])[..., None]
     take = lambda a, fill: torch.where(
-        live, a.view(n, n, nb, B)[ar, dest[:, None], idx], fill
-    ).reshape(n, -1)
+        live, a.view(rows, n, nb, B)[ar, dest[:, None], idx], fill
+    ).reshape(rows, -1)
     sp, dp, w = take(pg.src_pos, -1), take(pg.dst_pos, 0), take(pg.eweight, 0.0)
     msg, aact = _gen_messages(program, values, pg.degree, sp, w, active, step)
     return combine(program, pg.P, msg, dp, aact)
@@ -199,11 +205,11 @@ def _contrib_sparse(program, pg, values, active, prefix, step, dest, cap,
 def _contrib_kernel(program, pg, values, active, prefix, dest):
     """The hand-written edge_combine on the partition's own blocks, with the
     skip-compacted block list always on."""
-    n, B, nb = pg.n_shards, pg.edge_block, pg.n_blocks
-    ar = torch.arange(n, device=pg.device)
+    rows, n, B, nb = pg.n_rows, pg.n_shards, pg.edge_block, pg.n_blocks
+    ar = torch.arange(rows, device=pg.device)
     keep = kops.skip_keep_mask(pg.blk_lo[ar, dest], pg.blk_hi[ar, dest], prefix)
     ids, n_keep = kops.compact_blocks(keep)
-    blocks = lambda a: a.view(n, n, nb, B)
+    blocks = lambda a: a.view(rows, n, nb, B)
     return edge_combine(
         values, pg.degree, active, blocks(pg.src_pos), blocks(pg.dst_pos),
         blocks(pg.eweight), dest.to(torch.int32), ids, n_keep,
@@ -215,22 +221,22 @@ def _contrib_kernel(program, pg, values, active, prefix, dest):
 # exchanges
 # --------------------------------------------------------------------------
 
-def _ring_exchange(pg, contrib, digest):
+def _ring_exchange(pg, contrib, digest, comm=coll):
     """Ring reduce-scatter of per-destination combined buffers (§4.2/§5):
     n rounds; the accumulator arriving at shard i in round r is destined for
     ``(i + n-1-r) mod n``; shard i folds in its own A_s for that destination
     and forwards."""
     n = pg.n_shards
-    i = coll.axis_index(n, pg.device)[:, 0]
+    i = comm.axis_index(pg.n_rows, pg.device)[:, 0]
     acc = contrib((i + n - 1) % n)
     for r in range(1, n):
-        acc = tuple(coll.ring_shift(x) for x in acc)
+        acc = tuple(comm.ring_shift(x) for x in acc)
         A_s, cnt = contrib((i + (n - 1 - r)) % n)
         acc = digest(acc[0], acc[1], A_s, cnt)
     return acc
 
 
-def _basic_exchange(program, pg, values, active, step):
+def _basic_exchange(program, pg, values, active, step, comm=coll):
     """IO-Basic: raw (dst, payload) pairs all-to-all, a receiver-side sort
     by destination into the IMS, then one combining pass (§3.3.2). Returns
     (A_r or None without a combiner, cnt, sorted dst, sorted payloads), the
@@ -242,41 +248,42 @@ def _basic_exchange(program, pg, values, active, step):
     run (at an RMAT hub, hundreds of thousands of messages) drifts ~20x
     further from the ring's sum (1.3e-5 of PageRank's largest value at
     RMAT scale 24 on an H100, against 6e-7 between the ring's backends)."""
-    n, P = pg.n_shards, pg.P
+    rows, n, P = pg.n_rows, pg.n_shards, pg.P
     msg, aact = _gen_messages(program, values, pg.degree,
-                              pg.src_pos.reshape(n, -1),
-                              pg.eweight.reshape(n, -1), active, step)
-    dp_send = torch.where(aact, pg.dst_pos.reshape(n, -1), P)
-    recv_dp = coll.all_to_all(dp_send.view(n, n, -1)).view(n, -1)
-    recv_msg = coll.all_to_all(msg.view(n, n, -1)).view(n, -1)
+                              pg.src_pos.reshape(rows, -1),
+                              pg.eweight.reshape(rows, -1), active, step)
+    dp_send = torch.where(aact, pg.dst_pos.reshape(rows, -1), P)
+    recv_dp = comm.all_to_all(dp_send.view(rows, n, -1)).view(rows, -1)
+    recv_msg = comm.all_to_all(msg.view(rows, n, -1)).view(rows, -1)
     del msg, aact, dp_send
     sdp, order = torch.sort(recv_dp, dim=-1, stable=True)
     smsg = recv_msg.gather(1, order)
     del recv_dp, recv_msg
     valid = sdp < P
     if program.combiner is None:  # apply_list consumes the runs
-        cnt = torch.zeros(n * P, dtype=torch.int32, device=pg.device)
-        row = torch.arange(n, device=pg.device)[:, None] * P
+        cnt = torch.zeros(rows * P, dtype=torch.int32, device=pg.device)
+        row = torch.arange(rows, device=pg.device)[:, None] * P
         cnt.index_add_(0, (torch.where(valid, sdp, 0) + row).reshape(-1),
                        valid.reshape(-1).to(torch.int32))
-        return None, cnt.view(n, P), sdp, smsg
+        return None, cnt.view(rows, P), sdp, smsg
     # slot src*P + dst of each receiver's (n_src * P) partials
     slot = order // pg.E_cap * P + torch.where(valid, sdp, 0)
     del order
     # _gen_messages already set the invalid entries to e0
     A_part, cnt_part = _combine_scatter(program, n * P, smsg, slot, valid)
-    A_r = program.combiner.reduce(A_part.view(n, n, P), 1)
-    return A_r, cnt_part.view(n, n, P).sum(1, dtype=torch.int32), sdp, smsg
+    A_r = program.combiner.reduce(A_part.view(rows, n, P), 1)
+    return (A_r, cnt_part.view(rows, n, P).sum(1, dtype=torch.int32), sdp,
+            smsg)
 
 
-def _compact_exchange(program, pg, values, active, step):
+def _compact_exchange(program, pg, values, active, step, comm=coll):
     """One all_to_all hop of compact combined buffers: bfloat16 message
     values and int8 has-message flags (3 B a slot against the ring's 8 B,
     one rounding per message). The receiver digests in float32; its count
     is the number of shards that sent the vertex anything."""
     A_s_all, cnt_all = _contrib_all(program, pg, values, active, step)
-    recv_A = coll.all_to_all(A_s_all.to(torch.bfloat16))
-    recv_h = coll.all_to_all((cnt_all > 0).to(torch.int8))
+    recv_A = comm.all_to_all(A_s_all.to(torch.bfloat16))
+    recv_h = comm.all_to_all((cnt_all > 0).to(torch.int8))
     A_r = program.combiner.reduce(recv_A.to(program.msg_dtype), 1)
     return A_r, recv_h.sum(1, dtype=torch.int32)
 
@@ -294,31 +301,34 @@ class StepStats:
 
 def superstep(program: VertexProgram, pg: PartitionedGraph, values, active,
               step: int, *, mode: str = "recoded", backend: str = "kernel",
-              sparse_cap: int | None = None):
+              sparse_cap: int | None = None, comm=coll):
     """One full superstep: scatter -> exchange -> digest -> apply -> vote.
     ``sparse_cap`` (torch backend, ``recoded``/``basic_sc``) takes skip()'s
-    sparse gather."""
+    sparse gather. ``comm`` is ``core.collectives`` (all n shards' rows) or
+    a ``ProcessMesh`` (this rank's)."""
     comb = program.combiner
-    ctx = _shard_ctx(pg)
+    ctx = _shard_ctx(pg, comm)
     if mode == "recoded_compact":
-        A_r, cnt = _compact_exchange(program, pg, values, active, step)
+        A_r, cnt = _compact_exchange(program, pg, values, active, step, comm)
     elif mode == "basic" and comb is None:
         # general Pregel path: destination-sorted message lists (§3.3.2)
-        _, cnt, sdp, smsg = _basic_exchange(program, pg, values, active, step)
+        _, cnt, sdp, smsg = _basic_exchange(program, pg, values, active, step,
+                                            comm)
         has_msg = (cnt > 0) & pg.vmask
         new_values, new_active = program.apply_list(
             values, pg.degree, sdp, smsg, has_msg, active, step, ctx)
         return _finish_superstep(program, pg, values, new_values, new_active,
-                                 cnt, has_msg)
+                                 cnt, has_msg, comm)
     elif mode == "basic":
-        A_r, cnt, _, _ = _basic_exchange(program, pg, values, active, step)
+        A_r, cnt, _, _ = _basic_exchange(program, pg, values, active, step,
+                                         comm)
     elif backend == "kernel":
         prefix = _active_prefix(active)
         contrib = lambda dest: _contrib_kernel(program, pg, values, active,
                                                prefix, dest)
         digest = lambda A, c, A2, c2: kernel_digest(A, c, A2, c2,
                                                     combiner=comb.name)
-        A_r, cnt = _ring_exchange(pg, contrib, digest)
+        A_r, cnt = _ring_exchange(pg, contrib, digest, comm)
     else:
         combine = _combine_sort if mode == "basic_sc" else _combine_scatter
         if sparse_cap is not None:
@@ -330,13 +340,13 @@ def superstep(program: VertexProgram, pg: PartitionedGraph, values, active,
             contrib = lambda dest: _contrib_dense(program, pg, values, active,
                                                   step, dest, combine)
         digest = lambda A, c, A2, c2: (comb.combine(A, A2), c + c2)
-        A_r, cnt = _ring_exchange(pg, contrib, digest)
+        A_r, cnt = _ring_exchange(pg, contrib, digest, comm)
     has_msg = (cnt > 0) & pg.vmask
     new_values, new_active = program.apply(
         values, pg.degree, A_r, has_msg, active, step, ctx
     )
     return _finish_superstep(program, pg, values, new_values, new_active, cnt,
-                             has_msg)
+                             has_msg, comm)
 
 
 def superstep_logged(program: VertexProgram, pg: PartitionedGraph, values,
@@ -359,26 +369,27 @@ def superstep_logged(program: VertexProgram, pg: PartitionedGraph, values,
 
 
 def _finish_superstep(program, pg, values, new_values, new_active, cnt,
-                      has_msg):
-    """Superstep tail: halt voting, aggregator, frontier stats."""
+                      has_msg, comm=coll):
+    """Superstep tail: halt voting, aggregator, frontier stats (each
+    reduced over every shard, so all ranks of a mesh read the same)."""
     new_active = new_active & pg.vmask
-    n_active = coll.psum(new_active.sum(1))
-    n_msgs = coll.psum(cnt.sum(1))
+    n_active = comm.psum(new_active.sum(1))
+    n_msgs = comm.psum(cnt.sum(1))
     agg = program.aggregate(values, new_values, has_msg)
-    agg = (coll.psum(agg.to(torch.float32).sum(1)) if agg is not None
+    agg = (comm.psum(agg.to(torch.float32).sum(1)) if agg is not None
            else torch.zeros((), dtype=torch.float32, device=pg.device))
     # frontier density for the next superstep (drives dense/sparse dispatch)
     act_blk = _block_active(_active_prefix(new_active), pg.blk_lo, pg.blk_hi)
-    num = coll.psum(act_blk.sum((1, 2)))
-    den = coll.psum((pg.blk_hi >= 0).sum((1, 2)))
+    num = comm.psum(act_blk.sum((1, 2)))
+    den = comm.psum((pg.blk_hi >= 0).sum((1, 2)))
     density = num.to(torch.float32) / den.clamp(min=1).to(torch.float32)
-    max_grp = coll.pmax(act_blk.sum(-1))
+    max_grp = comm.pmax(act_blk.sum(-1))
     return new_values, new_active, StepStats(n_active, n_msgs, agg, density,
                                              max_grp)
 
 
-def init_spmd(program: VertexProgram, pg: PartitionedGraph):
-    values, active = program.init(_shard_ctx(pg))
+def init_spmd(program: VertexProgram, pg: PartitionedGraph, comm=coll):
+    values, active = program.init(_shard_ctx(pg, comm))
     return values.to(program.value_dtype), active & pg.vmask
 
 
@@ -691,6 +702,31 @@ def _host_copy(t: torch.Tensor) -> np.ndarray:
 # host driver
 # --------------------------------------------------------------------------
 
+_SLICE_5B = ("{} is not ported to the mesh yet (port slice 5b); run it "
+             "without mesh=")
+
+
+def _mesh_slice(pg: PartitionedGraph, mesh, mode: str, program,
+                message_log) -> PartitionedGraph:
+    """The mesh rank's rows of ``pg`` (or ``pg``, already that slice), after
+    the refusals of what the mesh does not run yet."""
+    if mode == "recoded_compact":
+        raise NotImplementedError(_SLICE_5B.format("mode='recoded_compact'"))
+    if mode == "basic" and program.combiner is None:
+        raise NotImplementedError(_SLICE_5B.format(
+            "mode='basic' without a combiner"))
+    if message_log is not None:
+        raise NotImplementedError(_SLICE_5B.format("message_log="))
+    if mesh.world_size != pg.n_shards:
+        raise ValueError(f"a mesh of {mesh.world_size} ranks runs one shard "
+                         f"a rank, and the partition has {pg.n_shards}")
+    if pg.n_rows == pg.n_shards:
+        pg = shard_slice(pg, mesh.rank)
+    elif pg.n_rows != 1:
+        raise ValueError(f"a rank takes the whole partition or its one-row "
+                         f"slice, not {pg.n_rows} rows")
+    return pg if pg.device == mesh.device else pg.to(mesh.device)
+
 @dataclass
 class SuperstepRecord:
     step: int
@@ -719,11 +755,19 @@ class GraphDEngine:
     moved to the engine's device if it lies elsewhere. ``message_log`` (a
     ``core.checkpoint.MessageLog``, or in ``streamed`` mode a
     ``RunFileMessageLog``) logs every superstep's outgoing buffers, for
-    single-shard fast recovery (§3.4)."""
+    single-shard fast recovery (§3.4).
+
+    ``mesh`` (a ``core.collectives.ProcessMesh``, the counterpart of the
+    reference's ``shard_map`` mesh) runs this process's shard alone, on the
+    mesh's device: ``pg`` is the whole partition, whose rows for the
+    mesh's rank the engine takes, or that rank's slice
+    (``graph.partition.shard_slice``). ``run()`` then returns this shard's
+    rows, and every rank reads the same superstep stats. ``launch.mesh``
+    starts one such process a shard."""
 
     def __init__(self, pg: PartitionedGraph, program: VertexProgram,
                  config: EngineConfig | None = None, *, device=None,
-                 message_log=None, stream_store=None):
+                 message_log=None, stream_store=None, mesh=None):
         if config is not None and not isinstance(config, EngineConfig):
             raise ConfigError(
                 "config must be an EngineConfig, got "
@@ -781,6 +825,11 @@ class GraphDEngine:
                     "mode='streamed' needs stream_store= (an "
                     "streams.EdgeStreamStore; see graph.partition_graph_streamed)"
                 )
+            if mesh is not None:
+                raise ValueError(
+                    "mode='streamed' is host-driven: backend='torch', "
+                    "mesh=None"
+                )
             if message_log is not None and not hasattr(message_log,
                                                        "save_group"):
                 raise ValueError(
@@ -795,6 +844,9 @@ class GraphDEngine:
                     f"store (n={geom.n_shards}, P={geom.P}, B={geom.edge_block})"
                     f" vs pg (n={pg.n_shards}, P={pg.P}, B={pg.edge_block})"
                 )
+        if mesh is not None:
+            pg = _mesh_slice(pg, mesh, mode, program, message_log)
+            device = mesh.device
         if message_log is not None and hasattr(message_log, "configure"):
             # run-file logs densify sparse runs back with the combiner
             # identity; they learn it (and the geometry) from the program
@@ -827,6 +879,8 @@ class GraphDEngine:
         self._payload_channels: tuple | None = None
         self.compress_payload = None if self._payload_auto else scheme
         self.full_duplex = bool(cfg.channel.full_duplex)
+        self.mesh = mesh
+        self.comm = coll if mesh is None else mesh
         if mode == "streamed":
             self._init_streamed(cfg)
 
@@ -884,13 +938,14 @@ class GraphDEngine:
 
     # -- in-memory modes -------------------------------------------------------
     def init(self):
-        return init_spmd(self.program, self.pg)
+        return init_spmd(self.program, self.pg, self.comm)
 
     def step(self, values, active, step: int, sparse: bool = False):
         """One superstep; returns (values, active, StepStats)."""
         return superstep(self.program, self.pg, values, active, step,
                          mode=self.mode, backend=self.backend,
-                         sparse_cap=self.sparse_cap if sparse else None)
+                         sparse_cap=self.sparse_cap if sparse else None,
+                         comm=self.comm)
 
     def step_logged(self, values, active, step: int):
         """The logged superstep; returns (values, active, StepStats,
@@ -910,6 +965,9 @@ class GraphDEngine:
         if self.mode == "streamed":
             return self._run_streamed(max_supersteps, state, start_step,
                                       verbose, checkpointer, on_step)
+        if self.mesh is not None and checkpointer is not None:
+            raise NotImplementedError(_SLICE_5B.format(
+                "run(checkpointer=...) on a mesh"))
         restored_from = None
         if (state is None and checkpointer is not None
                 and checkpointer.latest() is not None):

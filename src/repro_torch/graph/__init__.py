@@ -11,8 +11,9 @@ from repro_torch.graph.generate import (
 )
 from repro_torch.graph.partition import (
     PartitionedGraph, block_ranges, build_partition, drop_edges,
-    partition_for_plan, partition_graph, partition_graph_streamed,
-    spill_partition,
+    load_shard_slice, partition_for_plan, partition_graph,
+    partition_graph_streamed, shard_slice, spill_partition,
+    write_shard_slice,
 )
 from repro_torch.graph.recode import RecodeMap, recode_ids
 
@@ -21,4 +22,5 @@ __all__ = [
     "star_graph", "RecodeMap", "recode_ids", "PartitionedGraph",
     "block_ranges", "build_partition", "partition_graph", "drop_edges",
     "partition_graph_streamed", "partition_for_plan", "spill_partition",
+    "shard_slice", "write_shard_slice", "load_shard_slice",
 ]

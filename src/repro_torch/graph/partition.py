@@ -74,6 +74,12 @@ class PartitionedGraph:
     def device(self) -> torch.device:
         return self.degree.device
 
+    @property
+    def n_rows(self) -> int:
+        """Shards whose rows this object holds: ``n_shards``, or 1 for one
+        rank's slice (:func:`shard_slice`), which keeps ``n_shards``."""
+        return self.degree.shape[0]
+
     def to(self, device) -> "PartitionedGraph":
         return dataclasses.replace(
             self, **{f: getattr(self, f).to(device) for f in self.TENSORS}
@@ -214,6 +220,46 @@ def drop_edges(pg: PartitionedGraph) -> PartitionedGraph:
         blk_lo=torch.zeros((n, n, 0), dtype=torch.int32, device=dev),
         blk_hi=torch.zeros((n, n, 0), dtype=torch.int32, device=dev),
     )
+
+
+def shard_slice(pg: PartitionedGraph, shard: int) -> PartitionedGraph:
+    """Shard ``shard``'s rows of every tensor (a leading axis of 1, views of
+    ``pg``'s), as one rank of a mesh holds them; ``n_shards`` stays n, the
+    destinations of its edge groups."""
+    if pg.n_rows != pg.n_shards:
+        raise ValueError(f"{pg.shape_summary} holds {pg.n_rows} rows: "
+                         "already a slice")
+    if not 0 <= shard < pg.n_shards:
+        raise ValueError(f"shard {shard} of {pg.n_shards}")
+    return dataclasses.replace(pg, **{
+        f: getattr(pg, f)[shard:shard + 1] for f in pg.TENSORS})
+
+
+def _static_fields() -> tuple[str, ...]:
+    return tuple(f.name for f in dataclasses.fields(PartitionedGraph)
+                 if f.name not in PartitionedGraph.TENSORS)
+
+
+def write_shard_slice(pg: PartitionedGraph, shard: int, path: str) -> None:
+    """Write :func:`shard_slice` of ``pg`` to ``path`` (an ``.npz`` of the
+    port's own: the nine tensors, the scalars and the shard index)."""
+    part = shard_slice(pg, shard)
+    arrays = {f: getattr(part, f).cpu().numpy() for f in pg.TENSORS}
+    arrays.update({f: np.int64(getattr(pg, f)) for f in _static_fields()})
+    with open(path, "wb") as fh:
+        np.savez(fh, shard=np.int64(shard), **arrays)
+
+
+def load_shard_slice(path: str, device=None) -> tuple[PartitionedGraph, int]:
+    """``(slice, shard)`` from :func:`write_shard_slice`'s file, on
+    ``device`` (default: CUDA)."""
+    device = resolve_device(device)
+    with np.load(path) as z:
+        static = {f: int(z[f]) for f in _static_fields()}
+        tensors = {f: torch.from_numpy(z[f]).to(device)
+                   for f in PartitionedGraph.TENSORS}
+        shard = int(z["shard"])
+    return PartitionedGraph(**static, **tensors), shard
 
 
 def spill_partition(pg: PartitionedGraph, directory: str,

@@ -93,9 +93,14 @@ def _check(values, sp, msg_kind, combiner):
     if values.dtype == torch.int32 and msg_kind not in INT_KINDS:
         raise ValueError(f"int32 values take msg_kind in {INT_KINDS}, "
                          f"got {msg_kind!r}")
-    if sp.dim() != 4 or sp.shape[0] != values.shape[0]:
-        raise ValueError(f"sp must be (n, n, NB, BLK) with n = "
-                         f"{values.shape[0]}, got {tuple(sp.shape)}")
+    rows = values.shape[0]
+    # a mesh rank's slice has one row and all n destinations; the kernel
+    # finds row i's group at i * rows + dest[i], right for 1 or n rows
+    if sp.dim() != 4 or sp.shape[0] != rows or (rows != 1
+                                                 and sp.shape[1] != rows):
+        raise ValueError(f"sp must be (n, n, NB, BLK), or (1, n, NB, BLK) "
+                         f"for one row, with {rows} rows; got "
+                         f"{tuple(sp.shape)}")
 
 
 def edge_combine_plain(values, degree, active, sp, dp, w, dest, blk_ids,
@@ -199,7 +204,8 @@ def edge_combine(values, degree, active, sp, dp, w, dest, blk_ids, n_keep,
 
     values (n, P) float32 or int32; degree (n, P) int32; active (n, P) bool;
     sp/dp (n, n, NB, BLK) int32 and w (n, n, NB, BLK) float32, the
-    partition's groups (padding: sp = -1); dest (n,) int32; blk_ids (n, NB)
+    partition's groups (padding: sp = -1), or for one mesh rank's row
+    ``(1, n_shards, NB, BLK)``; dest (n,) int32; blk_ids (n, NB)
     int32 with the kept blocks first; n_keep (n,) int32. Returns A_s (n, P)
     in the values' dtype and cnt (n, P) int32.
 

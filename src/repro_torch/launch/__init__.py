@@ -8,6 +8,9 @@ messages through the shared-filesystem run-file transport and synchronizing
 through the file-based coordinator barriers, or, with
 ``launch_opts={"transport": "sockets"}``, over loopback TCP
 (:mod:`repro_torch.launch.net`) with a coordinator process of its own.
+:func:`repro_torch.launch.mesh.run_mesh` runs the in-memory engine as a
+mesh over ``torch.distributed``, one process a shard (gloo on the CPU,
+NCCL with one GPU a rank).
 """
 
 #: the socket transport's public names, all in ``repro_torch.launch.net``
@@ -16,7 +19,11 @@ _NET = ("CoordClient", "CoordServer", "FrameError", "PeerSender",
         "probe_file_throughput", "probe_link_throughput", "recv_frame",
         "send_frame")
 
-__all__ = ["run_processes", *_NET]
+#: the mesh launcher's public names, all in ``repro_torch.launch.mesh``
+_MESH = ("MeshFailed", "MeshResult", "MeshRun", "run_mesh",
+         "run_mesh_cases")
+
+__all__ = ["run_processes", *_NET, *_MESH]
 
 
 def __getattr__(name):
@@ -31,4 +38,8 @@ def __getattr__(name):
         from repro_torch.launch import net
 
         return getattr(net, name)
+    if name in _MESH:
+        from repro_torch.launch import mesh
+
+        return getattr(mesh, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

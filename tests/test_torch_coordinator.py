@@ -307,7 +307,8 @@ def test_worker_import_path_is_torch_free():
 #: (``repro`` matches the JAX package and its submodules, not repro_torch)
 PORT_WORKER_ROOTS = ("repro_torch.launch.procs",
                      "repro_torch.core.coordinator",
-                     "repro_torch.launch.net")
+                     "repro_torch.launch.net",
+                     "repro_torch.launch.mesh")
 PORT_FORBIDDEN = ("torch", "triton", "jax", "jaxlib", "repro")
 
 

@@ -560,3 +560,43 @@ def test_socket_transport_on_card(cuda, tmp_path, case):
         assert res.values == r_ref.values
         assert [(h.n_active, h.n_msgs) for h in res.history] == \
                [(h.n_active, h.n_msgs) for h in r_ref.history]
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_mesh_on_card(cuda, tmp_path, backend):
+    """GraphDEngine(mesh=) on the card through launch.mesh: gloo with two
+    ranks on one card (through host buffers), NCCL with one rank a GPU
+    where there are two GPUs or more. Against the emulated run on the card:
+    Hash-Min exactly, PageRank within 1e-5 of its largest value (float
+    atomics are unordered on the card); both kernels launch on every rank,
+    edge_combine n times and digest n-1 times a superstep."""
+    from repro_torch.launch.mesh import run_mesh_cases, visible_gpus
+
+    gpus = visible_gpus()
+    if backend == "nccl" and len(gpus) < 2:
+        pytest.skip(f"NCCL runs one rank a GPU, and this machine shows "
+                    f"{len(gpus)} GPU: the mesh needs two")
+    n = 2
+    g = rmat_graph(scale=10, edge_factor=8, seed=3, weights="uniform")
+    pg, _ = partition_graph(g, n, edge_block=64)
+    cases = [(PageRank(4), EngineConfig(backend="kernel")),
+             (HashMin(), EngineConfig(backend="kernel"))]
+    run = run_mesh_cases(pg, cases, backend=backend,
+                         gpus=gpus[:1] if backend == "gloo" else gpus[:n],
+                         workdir=str(tmp_path / "mesh"), timeout=300)
+    for (prog, cfg), res in zip(cases, run.results):
+        (v, a), hist = GraphDEngine(pg, prog, cfg).run()
+        assert [(h.n_active, h.n_msgs) for h in res.history] == \
+            [(h.n_active, h.n_msgs) for h in hist]
+        assert torch.equal(res.active, a.cpu())
+        if isinstance(prog, HashMin):
+            assert torch.equal(res.values, v.cpu())
+        else:
+            gap = float((res.values - v.cpu()).abs().max())
+            assert gap < 1e-5 * float(v.abs().max())
+        steps = len(hist)
+        for r in res.ranks:
+            assert r["launches"] == dict(edge_combine=n * steps,
+                                         digest=(n - 1) * steps)
+            assert r["bytes"]["ring"] == (n - 1) * pg.P * 8 * steps
+            assert (r["bytes"]["staged"] > 0) == (backend == "gloo")
