@@ -7,12 +7,15 @@
 Phases, each of which ends the run non-zero on a failure:
 
 1. the card's name and power limit, then the kernels' build from the sources
-   in this checkout (``nvcc`` for the CUDA kernel; Triton compiles at its
+   in this checkout (``nvcc`` for the CUDA kernels; Triton compiles at its
    first launch, timed here too);
 2. each kernel against its plain PyTorch version on the card, at the shapes
    of one ring round of the graph below (edge_combine: float sum within
-   rtol 1e-5 / atol 1e-6, everything else exact; digest: exact), with times
-   and the least time the card could take for the same work;
+   rtol 1e-5 / atol 1e-6, everything else exact; digest: exact; run_sum,
+   the torch backend's ordered float sum: equal to its plain version on
+   the CPU bit for bit, and within rtol 1e-5 of it on the card, where it
+   is ``index_add_``'s atomics), with times and the least time the card
+   could take for the same work;
 3. a small graph run through the port on the card, against a numpy PageRank
    oracle, a numpy BFS, numpy oracles of the two combiner-less programs
    (``basic`` mode) and the port's plain backend on the CPU;
@@ -20,12 +23,16 @@ Phases, each of which ends the run non-zero on a failure:
    PageRank (10 supersteps), Hash-Min, SSSP and BFS to quiescence, with the
    ``kernel`` backend and then the ``torch`` backend; the two must agree
    (PageRank within 1e-5 of its largest value and within rtol 1e-4 at
-   every vertex, the rest exactly, superstep by superstep);
+   every vertex, the rest exactly, superstep by superstep); both kernels
+   launch in the first, run_sum in the second;
 5. the other in-memory modes (``basic``, ``basic_sc``, ``recoded_compact``)
    on the same partition: PageRank (5 supersteps) and Hash-Min against the
    ``recoded`` torch run, and DistinctInLabels / SecondMinLabel under
    ``basic`` against numpy on a sample of destinations, each with its ms
-   per superstep, edges/s and peak device memory;
+   per superstep, edges/s and peak device memory; ``recoded`` and
+   ``recoded_compact`` PageRank run twice, bit-identical; a dense ring
+   round's ``_combine_scatter`` on the card against the same call on the
+   CPU, bit for bit;
 6. recovery on the same partition: PageRank and Hash-Min with a
    checkpointer and a message log, one shard recovered from the log against
    the live run, and a run resumed from the checkpoint against the
@@ -82,19 +89,28 @@ Phases, each of which ends the run non-zero on a failure:
 14. ``GraphDEngine(mesh=)`` through ``launch.mesh.run_mesh_cases``, one
     process a shard over ``torch.distributed``: gloo with 8 ranks on the
     first card and the main partition (PageRank 3 supersteps and Hash-Min
-    on the kernel backend, PageRank on ``basic``), then NCCL with one rank
-    a GPU where the machine has two or more (up to 8; the main graph
-    partitioned for that many), the same and SSSP, BFS and ``basic_sc``,
-    or with one GPU NCCL with one rank at scale 20; each against the
-    emulated run of the same partition (Hash-Min, SSSP and BFS exactly,
-    PageRank within 1e-5 of its largest value; bitmaps, message counts
-    and halt step exactly), each rank's bytes against the byte model from
-    the partition's shape (NCCL stages none through the host) and its
-    launches (n edge_combine and n-1 digest a superstep), with ms a
-    superstep past the first against the emulated run's, start-up, the
-    first GPU's memory and a rank's peak allocation.
+    on the kernel backend, PageRank on ``basic`` and ``recoded_compact``),
+    then NCCL with one rank a GPU where the machine has two or more (up to
+    8; the main graph partitioned for that many), the same and SSSP, BFS
+    and ``basic_sc``, or with one GPU NCCL with one rank at scale 20; each
+    against the emulated run of the same partition (the torch backend and
+    the integer programs bit for bit, the kernel backend's PageRank within
+    1e-5 of its largest value; bitmaps, message counts and halt step
+    exactly), each rank's bytes against the byte model from the
+    partition's shape (NCCL stages none through the host) and its launches
+    (n edge_combine and n-1 digest a superstep on the kernel backend,
+    run_sum on the torch backend's float sums), with ms a superstep past
+    the first against the emulated run's, start-up, the first GPU's memory
+    and a rank's peak allocation; then, on the small graph (scale 19), gloo
+    with 8 ranks (and NCCL with one rank a GPU where there are two or
+    more): logged PageRank (6 supersteps) with a message log and a
+    checkpoint every 4, the same resumed from its checkpoint, Hash-Min
+    over the ring and logged, DistinctInLabels and SecondMinLabel under
+    ``basic``, each bit-identical to the emulated run, the files the ranks
+    wrote equal to the emulated run's, and shard 3 recovered in this
+    process from the mesh's files, held to phase 6's bars.
 
-It prints the launch counts of the ``kernel`` run, and the per-kernel JSON
+It prints the launch counts of the main path's runs, and the per-kernel JSON
 line and the device line last. It needs a CUDA device and the CUDA toolkit.
 Its own process runs on the first GPU the machine gives it (the first of
 ``CUDA_VISIBLE_DEVICES``, else GPU 0); phase 14 spans them all.
@@ -412,7 +428,93 @@ def phase_kernels(pg, seed: int) -> dict:
               max_abs_err=dg_worst, ms=d0["ms"], plain_ms=d0["plain_ms"],
               bound_ms=d0["bound_ms"], bound_by=d0["bound_by"],
               library_ms=d0["library_ms"])
-    return dict(edge_combine=ec, digest=dg)
+    return dict(edge_combine=ec, digest=dg, run_sum=phase_run_sum(pg, seed))
+
+
+def dense_round(pg, seed: int, round_: int = 0):
+    """PageRank's messages of one dense ring round of ``pg`` (round r:
+    dest = (i + n-1-r) mod n), with random values and every vertex active,
+    as the engine hands them to ``_combine_scatter``: (msg, dp with the
+    padding marked -1, aact, the partition's precomputed order), each (n,
+    E_cap)."""
+    import torch
+    from repro_torch.core import PageRank
+    from repro_torch.core.engine import _gen_messages
+
+    n, dev = pg.n_shards, pg.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ar = torch.arange(n, device=dev)
+    dest = (ar + n - 1 - round_) % n
+    values = torch.rand((n, pg.P), generator=gen, device=dev)
+    sp = pg.src_pos[ar, dest]
+    msg, aact = _gen_messages(PageRank(1), values, pg.degree, sp,
+                              pg.eweight[ar, dest], pg.vmask, 0)
+    dp = torch.where(sp >= 0, pg.dst_pos[ar, dest], -1)
+    return msg, dp, aact, pg.dst_order[ar, dest]
+
+
+def phase_run_sum(pg, seed: int) -> dict:
+    """run_sum, the torch backend's ordered float sum, on one dense ring
+    round of PageRank on ``pg`` (every slot of every group, in the
+    partition's destination order): on the card against its plain version
+    on the CPU, bit for bit, and against its plain version on the card
+    (``index_add_``'s atomics: rtol 1e-5 / atol 1e-6), with times, the
+    longest run (a hub's chain of dependent adds) and the bound."""
+    import torch
+    from repro_torch.kernels.run_sum import run_sum, run_sum_plain
+
+    msg, dp, _, order = dense_round(pg, seed)
+    n, P = pg.n_shards, pg.P
+    key = torch.where(dp >= 0, dp.long() + torch.arange(
+        n, device=pg.device)[:, None] * P, -1)
+    n_out = n * P
+    got = run_sum(key, msg, n_out, order)
+    card_plain = run_sum_plain(key, msg, n_out, order)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cpu = run_sum_plain(key.cpu(), msg.cpu(), n_out, order.cpu())
+    cpu_s = time.perf_counter() - t0
+    check(torch.equal(got.cpu().view(torch.int32), cpu.view(torch.int32)),
+          "run_sum: the card's sums differ from the CPU's in their bits")
+    check(torch.allclose(got, card_plain, rtol=SUM_RTOL, atol=SUM_ATOL),
+          f"run_sum: differs from its plain version on the card beyond rtol "
+          f"{SUM_RTOL}")
+    err = max_abs_err(got, card_plain)
+    flat = key.reshape(-1)
+    M = flat.numel()
+    live = flat >= 0
+    longest = int(torch.bincount(flat[live], minlength=n_out).max())
+    lib_key, lib_msg = flat[live], msg.reshape(-1)[live]
+    out = torch.zeros(n_out, device=pg.device)
+
+    def library():  # the same sums, unordered
+        out.zero_()
+        out.index_add_(0, lib_key, lib_msg)
+
+    # a key (8 B), a value (4 B) and the order (4 B) read a position, the
+    # sums (4 B) written a slot; an add a position
+    bound_ms, bound_by = bound(16 * M + 4 * n_out, M)
+    row = dict(positions=M, slots=n_out, longest_run=longest,
+               max_abs_err=err,
+               ms=time_ms(lambda: run_sum(key, msg, n_out, order)),
+               launch_ms=host_launch_ms(lambda: run_sum(key, msg, n_out,
+                                                        order)),
+               plain_ms=time_ms(lambda: run_sum_plain(key, msg, n_out,
+                                                      order)),
+               library_ms=time_ms(library), bound_ms=bound_ms,
+               bound_by=bound_by, cpu_plain_s=cpu_s)
+    print("run_sum " + json.dumps(row))
+    print(f"run_sum: equal to the CPU's plain version bit for bit over "
+          f"{M} positions ({int(live.sum())} messages, the padding skipped;"
+          f" the longest run {longest}); within rtol "
+          f"{SUM_RTOL} of index_add_ on the card")
+    return dict(name="run_sum", route="cuda",
+                source="src/repro_torch/kernels/csrc/run_sum.cu",
+                replaces="none: src/repro/core/engine.py:130 "
+                         "(_combine_scatter, a jnp scatter-add)",
+                max_abs_err=err, ms=row["ms"], plain_ms=row["plain_ms"],
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=row["library_ms"])
 
 
 # --------------------------------------------------------------------------
@@ -636,6 +738,7 @@ def phase_main(pg, src: int) -> dict:
     import torch
     from repro_torch.kernels.digest import digest
     from repro_torch.kernels.edge_combine import edge_combine
+    from repro_torch.kernels.run_sum import run_sum
 
     torch.cuda.reset_peak_memory_stats()
     edge_combine.launches = 0
@@ -647,7 +750,11 @@ def phase_main(pg, src: int) -> dict:
     steps = sum(len(r["hist"]) for r in kern.values())
     print(f"main path launches (kernel backend, {steps} supersteps): "
           f"{launches}; peak device memory {peak / 2**30:.3f} GiB")
+    run_sum.launches = 0
     plain = run_algorithms(pg, src, "torch")
+    launches["run_sum"] = run_sum.launches
+    print(f"main path launches (torch backend): run_sum "
+          f"{run_sum.launches} (PageRank's ordered float sums)")
     for name in kern:
         k, p = kern[name], plain[name]
         if name == "pagerank":
@@ -707,10 +814,41 @@ def check_pagerank(v, ref, what: str, rtol: float | None = None) -> float:
     return rel
 
 
+TORCH_MODES = ("recoded", "basic", "basic_sc", "recoded_compact")
+#: ms a torch-backend PageRank superstep in this phase at RMAT scale 24 in 8
+#: shards on an NVIDIA H100 80GB HBM3 (700 W) when the float sums were
+#: index_add_'s unordered atomics (PERF.md §5), printed beside this run's
+UNORDERED_MS = {"recoded": 49.57, "basic": 56.21, "basic_sc": 68.54,
+                "recoded_compact": 50.00}
+
+
+def check_scatter_order(pg, seed: int) -> None:
+    """The torch backend's ordered float sums on the card: one dense ring
+    round's _combine_scatter against the same call on the CPU, bit for
+    bit."""
+    import torch
+    from repro_torch.core import PageRank
+    from repro_torch.core.engine import _combine_scatter
+
+    msg, dp, aact, order = dense_round(pg, seed, round_=3)
+    prog = PageRank(1)
+    A, cnt = _combine_scatter(prog, pg.P, msg, dp, aact, order)
+    torch.cuda.synchronize()
+    A_cpu, cnt_cpu = _combine_scatter(prog, pg.P, msg.cpu(), dp.cpu(),
+                                      aact.cpu())
+    check(torch.equal(A.cpu().view(torch.int32), A_cpu.view(torch.int32))
+          and torch.equal(cnt.cpu(), cnt_cpu),
+          "order: _combine_scatter on the card differs from the CPU's bits")
+    print(f"order: _combine_scatter of a dense ring round ({msg.numel()} "
+          f"slots, a hub of {int(cnt.max())} messages) on the card equals "
+          "the same call on the CPU bit for bit")
+
+
 def phase_modes(pg, seed: int) -> dict:
     """basic, basic_sc and recoded_compact (torch backend) against the
     recoded torch run: PageRank (5 supersteps) and Hash-Min to halt, then
-    the combiner-less programs under basic on a sample of destinations."""
+    the combiner-less programs under basic on a sample of destinations;
+    recoded and recoded_compact PageRank run twice, bit-identical."""
     import torch
     from repro_torch.core import EngineConfig, GraphDEngine, HashMin, PageRank
     from repro_torch.kernels.digest import digest
@@ -718,7 +856,7 @@ def phase_modes(pg, seed: int) -> dict:
 
     edge_combine.launches = digest.launches = 0
     rows, ref, gaps = [], {}, {}
-    for mode in ("recoded", "basic", "basic_sc", "recoded_compact"):
+    for mode in TORCH_MODES:
         for name, prog in (("pagerank", lambda: PageRank(5)),
                            ("hashmin", HashMin)):
             if mode == "recoded_compact" and name == "hashmin":
@@ -728,6 +866,13 @@ def phase_modes(pg, seed: int) -> dict:
             (v, a), hist, row = timed_run(eng, f"{mode} {name}")
             rows.append(row)
             steps = [(h.n_active, h.n_msgs) for h in hist]
+            if name == "pagerank" and mode in ("recoded", "recoded_compact"):
+                (v2, a2), hist2 = eng.run()
+                check(torch.equal(v2, v) and torch.equal(a2, a)
+                      and [h.agg for h in hist2] == [h.agg for h in hist],
+                      f"modes {mode} pagerank: two runs differ")
+                print(f"modes {mode} pagerank: two runs bit-identical")
+                del v2, a2
             if mode == "recoded":
                 ref[name] = (v, a, steps)
                 continue
@@ -755,6 +900,13 @@ def phase_modes(pg, seed: int) -> dict:
           f"(recoded_compact: rtol {COMPACT_RTOL}); pagerank's largest gap "
           "over its largest value: "
           + ", ".join(f"{m} {g:.4g}" for m, g in gaps.items()))
+    check_scatter_order(pg, seed)
+    print("modes: the torch backend's ms a PageRank superstep (5 "
+          "supersteps), ordered float sums against index_add_'s atomics at "
+          "scale 24 before: " + ", ".join(
+              f"{r['run'].split()[0]} {r['ms_per_superstep']:.3f} against "
+              f"{UNORDERED_MS[r['run'].split()[0]]}"
+              for r in rows if r["run"].endswith(" pagerank")))
     return dict(rows=rows, hashmin_steps=len(ref["hashmin"][2]), ref=ref)
 
 
@@ -1953,8 +2105,9 @@ class CardMemory:
 
 
 def mesh_cases(src: int, wide: bool):
-    """(label, program factory, EngineConfig) of phase 14; ``wide`` adds
-    SSSP and BFS on the kernel backend and basic_sc."""
+    """(label, program factory, EngineConfig) of phase 14 on the main
+    partition; ``wide`` adds SSSP and BFS on the kernel backend and
+    basic_sc."""
     from repro_torch.core import BFS, SSSP, EngineConfig, HashMin, PageRank
 
     cases = [("pagerank-recoded-kernel", lambda: PageRank(3),
@@ -1962,7 +2115,9 @@ def mesh_cases(src: int, wide: bool):
              ("hashmin-recoded-kernel", HashMin,
               EngineConfig(backend="kernel")),
              ("pagerank-basic-torch", lambda: PageRank(3),
-              EngineConfig(mode="basic", backend="torch"))]
+              EngineConfig(mode="basic", backend="torch")),
+             ("pagerank-recoded_compact-torch", lambda: PageRank(3),
+              EngineConfig(mode="recoded_compact", backend="torch"))]
     if wide:
         cases += [("sssp-recoded-kernel", lambda: SSSP(src),
                    EngineConfig(backend="kernel")),
@@ -1976,16 +2131,23 @@ def mesh_cases(src: int, wide: bool):
 def mesh_bytes(case: str, pg, backend: str) -> dict:
     """What a rank of an n-rank mesh hands its backend a superstep, from
     the partition's shape: the ring's (n-1) rounds of a value and a count
-    a position, or basic's one all_to_all of a payload and a destination
-    an edge slot; PageRank's 4-byte aggregator, gathered; five 8-byte
-    reductions. Under gloo every byte goes to the host and back, the
-    gather bringing n partials back."""
+    a position; basic's one all_to_all of a payload and a destination an
+    edge slot; recoded_compact's of a bf16 value and an int8 flag a slot
+    and destination; the logged step's of a float32 value and an int32
+    count a slot and destination; PageRank's 4-byte aggregator, gathered;
+    five 8-byte reductions. Under gloo every byte goes to the host and
+    back, the gather bringing n partials back."""
     n = pg.n_shards
     if n == 1:
         return dict(ring=0, all_to_all=0, gather=0, reduce=0, staged=0)
-    basic = "-basic-" in case
-    ring = 0 if basic else (n - 1) * pg.P * 8
-    a2a = n * pg.E_cap * 8 if basic else 0
+    if "-basic-" in case:
+        ring, a2a = 0, n * pg.E_cap * 8
+    elif "-recoded_compact-" in case:
+        ring, a2a = 0, n * pg.P * 3
+    elif "-logged" in case:
+        ring, a2a = 0, n * pg.P * 8
+    else:
+        ring, a2a = (n - 1) * pg.P * 8, 0
     gather = 4 if case.startswith("pagerank") else 0
     staged = (2 * (ring + a2a) + (gather + 4 * n if gather else 0) + 2 * 40
               if backend == "gloo" else 0)
@@ -1993,16 +2155,65 @@ def mesh_bytes(case: str, pg, backend: str) -> dict:
                 staged=staged)
 
 
+def check_mesh_case(what: str, case: str, cfg, res, v, a, hist, pg,
+                    backend: str, launches: dict) -> float:
+    """One mesh case against the emulated run of the same partition on the
+    card: superstep stats, halt step and bitmaps exactly; the torch
+    backend's values and the integer programs' bit for bit, the kernel
+    backend's PageRank by ``check_pagerank`` (edge_combine's float atomics
+    are unordered); each rank's bytes against :func:`mesh_bytes` and its
+    launches (the kernel backend: n edge_combine and n-1 digest a
+    superstep; the torch backend: run_sum for a float sum, neither
+    kernel), added to ``launches``. Returns PageRank's gap over its largest
+    value (0 where bit-identical)."""
+    import torch
+
+    n, steps = pg.n_shards, len(hist)
+    check([(h.n_active, h.n_msgs) for h in res.history]
+          == [(h.n_active, h.n_msgs) for h in hist],
+          f"{what}: superstep stats or halt step differ from the emulated "
+          "run")
+    check(torch.equal(res.active, a.cpu()),
+          f"{what}: active bitmap differs from the emulated run")
+    gap = 0.0
+    if case.startswith("pagerank") and cfg.backend == "kernel":
+        gap = check_pagerank(res.values, v.cpu(), f"{what}: pagerank")
+    else:
+        check(torch.equal(res.values, v.cpu()),
+              f"{what}: values differ from the emulated run")
+    want = {k: b * steps for k, b in mesh_bytes(case, pg, backend).items()}
+    for r, rank in enumerate(res.ranks):
+        check(rank["bytes"] == want, f"{what}: rank {r} handed its "
+              f"backend {rank['bytes']}, the byte model says {want}")
+        got = rank["launches"]
+        if cfg.backend == "kernel":
+            check(got["edge_combine"] == n * steps
+                  and got["digest"] == (n - 1) * steps,
+                  f"{what}: rank {r} launched {got} in {steps} supersteps")
+        else:
+            check(got["edge_combine"] == got["digest"] == 0,
+                  f"{what}: the torch backend launched a kernel of the "
+                  "kernel backend")
+            check((got["run_sum"] > 0) == case.startswith("pagerank"),
+                  f"{what}: rank {r} launched run_sum {got['run_sum']} "
+                  "times")
+        for name, count in got.items():
+            launches[name][r] += count
+    return gap
+
+
+def _past_ms(hist) -> float:
+    """ms a superstep past the first."""
+    return sum(x.seconds for x in hist[1:]) * 1e3 / max(len(hist) - 1, 1)
+
+
 def run_mesh_phase(label: str, pg, src: int, backend: str, gpus: list,
                    wide: bool) -> dict:
     """Every case of :func:`mesh_cases` on one mesh of ``pg.n_shards``
-    ranks, each held against the emulated run of the same partition on the
-    card: Hash-Min, SSSP and BFS exactly, PageRank by ``check_pagerank``;
-    bitmaps, message counts a superstep and the halt step exactly; each
-    rank's bytes against :func:`mesh_bytes` and its kernel launches
-    against n edge_combine and n-1 digest a superstep. Prints ms a
-    superstep past the first (the slowest rank's) against the emulated
-    run's, start-up, the first GPU's memory and a rank's peak allocation."""
+    ranks, each held by :func:`check_mesh_case` against the emulated run
+    of the same partition on the card. Prints ms a superstep past the
+    first (the slowest rank's) against the emulated run's, start-up, the
+    first GPU's memory and a rank's peak allocation."""
     import torch
     from repro_torch.core import GraphDEngine
     from repro_torch.launch.mesh import run_mesh_cases
@@ -2017,57 +2228,32 @@ def run_mesh_phase(label: str, pg, src: int, backend: str, gpus: list,
                                  workdir=root, timeout=600)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    launches = {"edge_combine": [0] * n, "digest": [0] * n}
+    launches = {k: [0] * n for k in ("edge_combine", "digest", "run_sum")}
     for (case, make, cfg), res in zip(cases, run.results):
         what = f"mesh {label} {case}"
         (v, a), hist = GraphDEngine(pg, make(), cfg).run()
         torch.cuda.synchronize()
-        steps = len(hist)
-        check([(h.n_active, h.n_msgs) for h in res.history]
-              == [(h.n_active, h.n_msgs) for h in hist],
-              f"{what}: superstep stats or halt step differ from the "
-              "emulated run")
-        check(torch.equal(res.active, a.cpu()),
-              f"{what}: active bitmap differs from the emulated run")
-        if case.startswith("pagerank"):
-            gap = check_pagerank(res.values, v.cpu(), f"{what}: pagerank")
+        gap = check_mesh_case(what, case, cfg, res, v, a, hist, pg, backend,
+                              launches)
+        twin = None
+        if case.startswith("pagerank") and cfg.backend == "kernel":
             # the card's own run-to-run spread, beside the mesh's gap:
-            # float atomics add in no fixed order
+            # edge_combine's float atomics add in no fixed order
             (v2, _), _ = GraphDEngine(pg, make(), cfg).run()
             twin = float((v2 - v).abs().max()) / float(v.abs().max())
             del v2
-        else:
-            check(torch.equal(res.values, v.cpu()),
-                  f"{what}: values differ from the emulated run")
-            gap = 0.0
-        model = mesh_bytes(case, pg, backend)
-        want = {k: b * steps for k, b in model.items()}
-        for r, rank in enumerate(res.ranks):
-            check(rank["bytes"] == want, f"{what}: rank {r} handed its "
-                  f"backend {rank['bytes']}, the byte model says {want}")
-            if cfg.backend == "kernel":
-                check(rank["launches"] == dict(edge_combine=n * steps,
-                                               digest=(n - 1) * steps),
-                      f"{what}: rank {r} launched {rank['launches']} in "
-                      f"{steps} supersteps")
-                for name, count in rank["launches"].items():
-                    launches[name][r] += count
-            else:
-                check(rank["launches"] == dict(edge_combine=0, digest=0),
-                      f"{what}: the torch backend launched a kernel")
-        past = lambda h: (sum(x.seconds for x in h[1:]) * 1e3
-                          / max(len(h) - 1, 1))
-        print(f"mesh {label} {case}: {steps} supersteps, "
-              f"{past(res.history):.3f} ms a superstep past the first (the "
-              f"slowest rank) against the emulated run's {past(hist):.3f}; "
-              "per-superstep ms of the slowest rank "
+        print(f"mesh {label} {case}: {len(hist)} supersteps in "
+              f"{sum(h.seconds for h in res.history):.3f} s, "
+              f"{_past_ms(res.history):.3f} ms a superstep past the first "
+              f"(the slowest rank) against the emulated run's "
+              f"{_past_ms(hist):.3f}; per-superstep ms of the slowest rank "
               f"{[round(h.seconds * 1e3, 2) for h in res.history]}, of the "
               f"emulated run {[round(h.seconds * 1e3, 2) for h in hist]}; "
-              f"each rank handed its backend {model} bytes a superstep, "
-              "equal to the byte model"
-              + (f"; pagerank gap over its largest value {gap:.4g}, and "
-                 f"{twin:.4g} between two emulated runs"
-                 if case.startswith("pagerank") else ""))
+              f"each rank handed its backend {mesh_bytes(case, pg, backend)}"
+              " bytes a superstep, equal to the byte model; "
+              + (f"pagerank gap over its largest value {gap:.4g}, and "
+                 f"{twin:.4g} between two emulated runs" if twin is not None
+                 else "equal to the emulated run bit for bit"))
         del v, a
     start = {k: max(s[k] for s in run.startup) for k in run.startup[0]}
     peak = max((r["peak_bytes"] for res in run.results for r in res.ranks
@@ -2084,15 +2270,201 @@ def run_mesh_phase(label: str, pg, src: int, backend: str, gpus: list,
     return dict(launches=launches, run=run)
 
 
+#: the logged cases of phase 14 on the small graph: (label, program
+#: factory, EngineConfig, CaseFiles fields), in order. The resumed case
+#: restarts the first from its step-4 checkpoint (every 4, so that shard 3's
+#: recovery replays two supersteps, as phase 6's does).
+MESH_LOG_EVERY = 4
+
+
+def mesh_recovery_cases():
+    from repro_torch.core import (
+        DistinctInLabels, EngineConfig, HashMin, PageRank, SecondMinLabel,
+    )
+
+    torch_cfg = EngineConfig(backend="torch")
+    files = dict(log="log", ckpt="ckpt", every=MESH_LOG_EVERY)
+    return [("pagerank-logged", lambda: PageRank(6), torch_cfg,
+             dict(files, save_initial=True)),
+            ("pagerank-logged-resumed", lambda: PageRank(6), torch_cfg,
+             files),
+            ("hashmin-recoded-kernel", HashMin,
+             EngineConfig(backend="kernel"), None),
+            ("hashmin-logged", HashMin, torch_cfg, dict(log="log-hm")),
+            ("distinct-basic-torch",
+             lambda: DistinctInLabels(n_groups=8, rounds=2),
+             EngineConfig(mode="basic", backend="torch"), None),
+            ("secondmin-basic-torch", SecondMinLabel,
+             EngineConfig(mode="basic", backend="torch"), None)]
+
+
+def _files(root: str, fields):
+    from repro_torch.launch.mesh import CaseFiles
+
+    if fields is None:
+        return None
+    return CaseFiles(**{k: os.path.join(root, v) if k in ("log", "ckpt")
+                        else v for k, v in fields.items()})
+
+
+def _emulated_logged(pg, make, cfg, files):
+    """The case on the emulated engine with an unmeshed log and
+    checkpointer in ``files``' directories."""
+    from repro_torch.core import Checkpointer, GraphDEngine, MessageLog
+
+    log = MessageLog(files.log) if files and files.log else None
+    ck = (Checkpointer(files.ckpt, files.every, files.keep)
+          if files and files.ckpt else None)
+    eng = GraphDEngine(pg, make(), cfg, message_log=log)
+    if ck is not None and files.save_initial:
+        ck.save(0, *eng.init())
+    return eng.run(checkpointer=ck)
+
+
+def same_files(mesh_dir: str, emu_dir: str) -> int:
+    """Every file the emulated run wrote under ``emu_dir`` exists under
+    ``mesh_dir`` with the same arrays (npz) or contents; returns the
+    files compared."""
+    count = 0
+    for d, _, fs in os.walk(emu_dir):
+        for f in fs:
+            rel = os.path.relpath(os.path.join(d, f), emu_dir)
+            mine = os.path.join(mesh_dir, rel)
+            check(os.path.exists(mine), f"mesh files: {rel} is missing")
+            if f.endswith(".npz"):
+                with np.load(os.path.join(d, f)) as x, np.load(mine) as y:
+                    check(sorted(x.files) == sorted(y.files) and all(
+                        np.array_equal(x[k], y[k]) and x[k].dtype == y[k].dtype
+                        for k in x.files), f"mesh files: {rel} differs")
+            else:
+                with open(os.path.join(d, f)) as x, open(mine) as y:
+                    check(json.load(x) == json.load(y),
+                          f"mesh files: {rel} differs")
+            count += 1
+    return count
+
+
+def run_mesh_recovery(label: str, pg, backend: str, gpus: list,
+                      failed: int = 3) -> dict:
+    """The mesh's logged step, message log, checkpoints and recovery, and
+    combiner-less basic, on one mesh of ``pg.n_shards`` ranks: logged
+    PageRank (6 supersteps, a checkpoint every MESH_LOG_EVERY after a
+    step-0 one), the same resumed from its latest checkpoint, Hash-Min over
+    the ring and logged, DistinctInLabels and SecondMinLabel under basic.
+    Each against the emulated run (its log and checkpoints in directories of
+    its own) by :func:`check_mesh_case`, the files the ranks wrote equal to
+    the emulated run's; the resumed run equals the live one, ring Hash-Min
+    the logged one; shard ``failed`` recovered in this process from the
+    mesh's files, held to phase 6's bars; the combiner-less programs'
+    emulated runs held to numpy by :func:`check_combinerless`."""
+    import torch
+    from repro_torch.core import (
+        Checkpointer, GraphDEngine, MessageLog, PageRank, recover_shard,
+    )
+    from repro_torch.launch.mesh import run_mesh_cases
+
+    n = pg.n_shards
+    cases = mesh_recovery_cases()
+    root = tempfile.mkdtemp(prefix=".chip_smoke-mesh-", dir=ROOT)
+    mesh_root, emu_root = os.path.join(root, "mesh"), os.path.join(root, "emu")
+    try:
+        t0 = time.perf_counter()
+        run = run_mesh_cases(
+            pg, [(make(), cfg, *([_files(mesh_root, f)] if f else []))
+                 for _, make, cfg, f in cases],
+            backend=backend, device="cuda", gpus=gpus,
+            workdir=os.path.join(root, "ranks"), timeout=600)
+        mesh_s = time.perf_counter() - t0
+        launches = {k: [0] * n for k in ("edge_combine", "digest",
+                                         "run_sum")}
+        results = {}
+        t0 = time.perf_counter()
+        for (case, make, cfg, f), res in zip(cases, run.results):
+            (v, a), hist = _emulated_logged(pg, make, cfg,
+                                            _files(emu_root, f))
+            torch.cuda.synchronize()
+            check([h.restored_from for h in res.history]
+                  == [h.restored_from for h in hist],
+                  f"mesh {label} {case}: resumed from another step")
+            check_mesh_case(f"mesh {label} {case}", case, cfg, res, v, a,
+                            hist, pg, backend, launches)
+            results[case] = res
+            r0 = res.ranks[0]
+            print(f"mesh {label} {case}: {len(hist)} supersteps "
+                  f"{[h.step for h in hist]} in "
+                  f"{sum(h.seconds for h in res.history):.3f} s (the slowest"
+                  f" rank), equal to the emulated run bit "
+                  f"for bit; {_past_ms(res.history):.3f} ms a superstep past "
+                  f"the first against the emulated run's {_past_ms(hist):.3f}"
+                  f"; each rank handed its backend "
+                  f"{mesh_bytes(case, pg, backend)} bytes a superstep"
+                  + (f"; rank 0's log {r0['log_bytes']} bytes"
+                     if r0["log_bytes"] is not None else "")
+                  + (f"; checkpoints {max(r['ckpt_seconds'] for r in res.ranks):.3f}"
+                     " s on the slowest rank"
+                     if r0["ckpt_seconds"] is not None else ""))
+        emu_s = time.perf_counter() - t0
+        files = same_files(mesh_root, emu_root)
+        live = results["pagerank-logged"]
+        resumed = results["pagerank-logged-resumed"]
+        latest = Checkpointer(os.path.join(mesh_root, "ckpt")).latest()
+        check(resumed.history[0].restored_from == latest == MESH_LOG_EVERY
+              and torch.equal(resumed.values, live.values)
+              and torch.equal(resumed.active, live.active),
+              f"mesh {label}: the resumed run differs from the live one")
+        ring, logged = (results["hashmin-recoded-kernel"],
+                        results["hashmin-logged"])
+        check(torch.equal(ring.values, logged.values)
+              and torch.equal(ring.active, logged.active),
+              f"mesh {label}: Hash-Min over the ring differs from logged")
+        steps = len(live.history)
+        model = n * pg.P * 8
+        for r, rank in enumerate(live.ranks):
+            check(steps * model <= rank["log_bytes"]
+                  < steps * (model + 1024),
+                  f"mesh {label}: rank {r} logged {rank['log_bytes']} bytes"
+                  f" in {steps} supersteps, the model {model} a superstep")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vj, aj = recover_shard(pg, PageRank(6), failed,
+                               Checkpointer(os.path.join(mesh_root, "ckpt")),
+                               MessageLog(os.path.join(mesh_root, "log")),
+                               steps)
+        torch.cuda.synchronize()
+        rec_s = time.perf_counter() - t0
+        check(steps - latest >= 2, f"mesh {label}: only {steps - latest} "
+              "supersteps after the checkpoint")
+        gap = check_pagerank(vj.cpu(), live.values[failed],
+                             f"mesh {label}: recovered shard")
+        check(torch.equal(aj.cpu(), live.active[failed]),
+              f"mesh {label}: recovered active bitmap differs")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    start = max(s["spawn_to_first_s"] for s in run.startup)
+    print(f"mesh {label} recovery: {n} ranks over {backend}, the ranks ran "
+          f"{mesh_s:.3f} s (spawn to the first superstep {start:.3f} s), the "
+          f"emulated runs {emu_s:.3f} s; {files} log and checkpoint files "
+          f"equal to the emulated run's; the resumed run (from step "
+          f"{latest}) equals the live one; ring Hash-Min equals logged; "
+          f"shard {failed} recovered from the mesh's files over "
+          f"{steps - latest} supersteps in {rec_s:.3f} s, gap {gap:.4g} of "
+          f"the largest value, bitmap exact; log {model} bytes a rank a "
+          "superstep by the model")
+    return dict(launches=launches, seconds=mesh_s + emu_s)
+
+
 def phase_mesh(g, pg, src: int, seed: int, gpus: list, power: str) -> dict:
     """GraphDEngine(mesh=) through launch.mesh, one process a shard: always
     gloo with 8 ranks on the first card, on the main partition (PageRank
-    3 supersteps and Hash-Min on the kernel backend, PageRank on basic);
-    then NCCL with one rank a GPU, up to 8, on the main graph partitioned
-    for that many (the main partition itself at 8), the same cases and
-    SSSP, BFS and basic_sc; on a machine with one GPU, NCCL with one rank
-    at scale MESH_ONE_GPU_SCALE. Returns each rank's kernel launches of the
-    gloo run."""
+    3 supersteps and Hash-Min on the kernel backend, PageRank on basic and
+    recoded_compact); then NCCL with one rank a GPU, up to 8, on the main
+    graph partitioned for that many (the main partition itself at 8), the
+    same cases and SSSP, BFS and basic_sc; on a machine with one GPU, NCCL
+    with one rank at scale MESH_ONE_GPU_SCALE. Then the logged step, the
+    message log, checkpoints, recovery and combiner-less basic on the small
+    graph (RMAT scale ELASTIC_SCALE): gloo with 8 ranks on the first card,
+    and NCCL with one rank a GPU where the machine has two or more.
+    Returns each rank's launches of the gloo runs."""
     import torch
     from repro_torch.graph import partition_graph, rmat_graph
 
@@ -2122,7 +2494,30 @@ def phase_mesh(g, pg, src: int, seed: int, gpus: list, power: str) -> dict:
         label += f" (RMAT scale {MESH_ONE_GPU_SCALE})"
     run_mesh_phase(label, pgn, srcn, "nccl", gpus[:n], wide=True)
     del pgn
-    return dict(launches_per_rank=gloo["launches"])
+    t0 = time.perf_counter()
+    gs = rmat_graph(scale=ELASTIC_SCALE, edge_factor=16, seed=seed,
+                    weights="uniform")
+    pgs, _ = partition_graph(gs, SHARDS)
+    print(f"mesh: the small graph (RMAT scale {ELASTIC_SCALE}) in "
+          f"{time.perf_counter() - t0:.1f} s: {pgs.shape_summary}")
+    t0 = time.perf_counter()
+    small = run_mesh_recovery(f"gloo x{SHARDS} (RMAT scale {ELASTIC_SCALE})",
+                              pgs, "gloo", gpus[:1])
+    real = pgs.gids[pgs.vmask].cpu().numpy()
+    check_combinerless(pgs, np.random.default_rng(seed).choice(
+        real, 256, replace=False), "mesh small-graph emulated")
+    print(f"mesh: the small-graph cases took {time.perf_counter() - t0:.1f}"
+          " s in all")
+    if n >= 2:
+        pgsn = pgs if n == SHARDS else partition_graph(gs, n)[0]
+        run_mesh_recovery(f"nccl x{n} (RMAT scale {ELASTIC_SCALE})", pgsn,
+                          "nccl", gpus[:n])
+        del pgsn
+    del pgs
+    launches = {k: [a + b for a, b in zip(gloo["launches"][k],
+                                          small["launches"][k])]
+                for k in gloo["launches"]}
+    return dict(launches_per_rank=launches)
 
 
 def main(argv=None) -> int:

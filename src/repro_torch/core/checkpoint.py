@@ -19,6 +19,12 @@ checkpoint is written").
 
 Writes take tensors on any device or numpy arrays; reads return tensors on
 ``device`` (CUDA unless the caller names another).
+
+On a mesh (``GraphDEngine(..., mesh=)``, one process a shard) a
+``Checkpointer`` and a ``MessageLog`` are made on every rank with
+``mesh=``: rank r writes ``shard-{r}.npz`` alone, rank 0 publishes each
+checkpoint once every rank has written (the same files and manifest as one
+process writes), and a shard is recovered from them in one process.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import json
 import os
 import re
 import shutil
+import time
 
 import numpy as np
 import torch
@@ -39,6 +46,17 @@ from repro_torch.graph.partition import PartitionedGraph
 _STEP_DIR = re.compile(r"^step-(\d+)$")
 
 
+def _lead(mesh) -> bool:
+    """Whether this process does the one-process work: always off a mesh,
+    rank 0 on one."""
+    return mesh is None or mesh.rank == 0
+
+
+def _first_shard(mesh) -> int:
+    """The shard of the first row this process writes."""
+    return 0 if mesh is None else mesh.rank
+
+
 def _numpy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
@@ -46,19 +64,33 @@ def _numpy(x) -> np.ndarray:
 
 
 class Checkpointer:
-    """Shard-file checkpoints with an atomic manifest."""
+    """Shard-file checkpoints with an atomic manifest.
 
-    def __init__(self, directory: str, every: int = 5, keep: int = 2):
+    With ``mesh=`` (a ``core.collectives.ProcessMesh``, made on every rank
+    of a mesh over one shared directory) each rank writes its own shard's
+    file and reads it back: rank 0 alone sweeps stale temporaries here and
+    publishes each checkpoint (manifest, rename, collection of old ones)
+    once every rank has written, between two barriers."""
+
+    def __init__(self, directory: str, every: int = 5, keep: int = 2, *,
+                 mesh=None):
         self.dir = directory
         self.every = every
         self.keep = keep
+        self.mesh = mesh
+        #: seconds spent in :meth:`save` (barriers included on a mesh)
+        self.save_seconds = 0.0
         os.makedirs(directory, exist_ok=True)
         # a crash between makedirs(tmp) and the atomic rename in save()
-        # leaves a .tmp-step-* behind; sweep them so they can't pile up
-        for name in os.listdir(directory):
-            if name.startswith(".tmp-step-"):
-                shutil.rmtree(os.path.join(directory, name),
-                              ignore_errors=True)
+        # leaves a .tmp-step-* behind; sweep them so they can't pile up (on
+        # a mesh, before any rank may write into one)
+        if _lead(mesh):
+            for name in os.listdir(directory):
+                if name.startswith(".tmp-step-"):
+                    shutil.rmtree(os.path.join(directory, name),
+                                  ignore_errors=True)
+        if mesh is not None:
+            mesh.barrier()
 
     # -- write ---------------------------------------------------------------
     def maybe_save(self, step: int, values, active, meta=None) -> bool:
@@ -72,27 +104,38 @@ class Checkpointer:
     def save(self, step: int, values, active, meta=None):
         """``meta`` (JSON-able) is recorded in the manifest; the streamed
         engine passes the edge-stream store's signature so that recovery
-        can refuse vertex state written against other edge streams."""
+        can refuse vertex state written against other edge streams. On a
+        mesh, ``values``/``active`` are this rank's rows."""
+        t0 = time.perf_counter()
         vals = _numpy(values)
         act = _numpy(active)
         tmp = os.path.join(self.dir, f".tmp-step-{step:06d}")
         final = os.path.join(self.dir, f"step-{step:06d}")
         os.makedirs(tmp, exist_ok=True)
+        first = _first_shard(self.mesh)
         for i in range(vals.shape[0]):
-            np.savez(os.path.join(tmp, f"shard-{i}.npz"),
+            np.savez(os.path.join(tmp, f"shard-{first + i}.npz"),
                      values=vals[i], active=act[i])
-        manifest = dict(step=step, n_shards=int(vals.shape[0]),
-                        P=int(vals.shape[1]), dtype=str(vals.dtype),
-                        meta=meta)
-        with open(os.path.join(tmp, "manifest.json"), "w") as f:
-            json.dump(manifest, f)
-            f.flush()
-            os.fsync(f.fileno())  # recovery trusts any step dir it can see;
-            # the manifest must be durable before the rename publishes it
-        if os.path.exists(final):
-            shutil.rmtree(final)
-        os.rename(tmp, final)  # atomic publish
-        self._gc()
+        if self.mesh is not None:
+            self.mesh.barrier()  # every rank's shard is written
+        if _lead(self.mesh):
+            n_shards = (vals.shape[0] if self.mesh is None
+                        else self.mesh.world_size)
+            manifest = dict(step=step, n_shards=int(n_shards),
+                            P=int(vals.shape[1]), dtype=str(vals.dtype),
+                            meta=meta)
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump(manifest, f)
+                f.flush()
+                os.fsync(f.fileno())  # recovery trusts any step dir it can
+                # see; the manifest must be durable before the rename
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.rename(tmp, final)  # atomic publish
+            self._gc()
+        if self.mesh is not None:
+            self.mesh.barrier()  # published: every rank sees it
+        self.save_seconds += time.perf_counter() - t0
 
     def _gc(self):
         steps = self.all_steps()
@@ -123,10 +166,12 @@ class Checkpointer:
 
     def restore(self, step: int | None = None, expected_meta=None,
                 device=None):
-        """(values, active, step) as ``(n, P)`` tensors on ``device``.
-        When ``expected_meta`` is given and the checkpoint recorded a
-        (non-null) meta, the two must match: a checkpoint written against
-        other edge streams is unusable state, not a silent wrong answer."""
+        """(values, active, step) as ``(n, P)`` tensors on ``device`` (on a
+        mesh, this rank's ``(1, P)`` row, after the manifest's shard count
+        is checked against the mesh's). When ``expected_meta`` is given
+        and the checkpoint recorded a (non-null) meta, the two must match:
+        a checkpoint written against other edge streams is unusable state,
+        not a silent wrong answer."""
         device = resolve_device(device)
         d, step = self._step_dir(step)
         with open(os.path.join(d, "manifest.json")) as f:
@@ -137,8 +182,16 @@ class Checkpointer:
                 f"checkpoint step-{step:06d} was written against different "
                 f"edge streams: manifest meta {got} != expected {expected_meta}"
             )
+        shards = range(manifest["n_shards"])
+        if self.mesh is not None:
+            if manifest["n_shards"] != self.mesh.world_size:
+                raise ValueError(
+                    f"checkpoint step-{step:06d} holds "
+                    f"{manifest['n_shards']} shards and the mesh has "
+                    f"{self.mesh.world_size} ranks")
+            shards = [self.mesh.rank]
         vals, acts = [], []
-        for i in range(manifest["n_shards"]):
+        for i in shards:
             with np.load(os.path.join(d, f"shard-{i}.npz")) as z:
                 vals.append(z["values"])
                 acts.append(z["active"])
@@ -155,21 +208,28 @@ class Checkpointer:
 
 
 class MessageLog:
-    """Per-superstep outgoing-message logs (the persisted OMSs of [19])."""
+    """Per-superstep outgoing-message logs (the persisted OMSs of [19]).
 
-    def __init__(self, directory: str):
+    With ``mesh=`` (made on every rank of a mesh over one shared directory)
+    each rank writes its own shard's file, and rank 0 alone drops old
+    steps."""
+
+    def __init__(self, directory: str, *, mesh=None):
         self.dir = directory
+        self.mesh = mesh
         os.makedirs(directory, exist_ok=True)
 
     def save(self, step: int, A_s_all, cnt_all):
-        """A_s_all: (n_src, n_dest, P) combined outgoing buffers; cnt_all
-        their message counts."""
+        """A_s_all: (n_src, n_dest, P) combined outgoing buffers (on a mesh,
+        this rank's (1, n_dest, P)); cnt_all their message counts."""
         A = _numpy(A_s_all)
         C = _numpy(cnt_all)
         d = os.path.join(self.dir, f"step-{step:06d}")
         os.makedirs(d, exist_ok=True)
+        first = _first_shard(self.mesh)
         for i in range(A.shape[0]):
-            np.savez(os.path.join(d, f"shard-{i}.npz"), A_s=A[i], cnt=C[i])
+            np.savez(os.path.join(d, f"shard-{first + i}.npz"), A_s=A[i],
+                     cnt=C[i])
 
     def load_for_dest(self, step: int, dest: int, n_shards: int,
                       skip_shard: int) -> list[tuple[np.ndarray, np.ndarray]]:
@@ -185,7 +245,11 @@ class MessageLog:
         return parts
 
     def gc_before(self, step: int):
-        """§3.4: drop message logs once a newer checkpoint is durable."""
+        """§3.4: drop message logs once a newer checkpoint is durable (on a
+        mesh, rank 0 does, after the checkpoint's last barrier: every rank
+        has written every step it drops)."""
+        if not _lead(self.mesh):
+            return
         for name in sorted(os.listdir(self.dir)):
             m = _STEP_DIR.match(name)
             if m and int(m.group(1)) < step:

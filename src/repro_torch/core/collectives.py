@@ -97,10 +97,13 @@ class ProcessMesh:
         return x
 
     def barrier(self) -> None:
-        """One small all_reduce, uncounted: every rank has joined, and
-        NCCL's communicator exists before the first ring round."""
-        x = self._out(torch.ones(1, device=self.device))
-        dist.all_reduce(x)
+        """One small all_reduce, uncounted (nor staged: under gloo it is
+        made on the host): every rank has joined, and NCCL's communicator
+        exists before the first ring round."""
+        if self.world_size == 1:
+            return
+        host = self.backend == "gloo"
+        dist.all_reduce(torch.ones(1, device="cpu" if host else self.device))
 
     def ring_shift(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's row goes to rank r+1; the row of rank r-1 comes

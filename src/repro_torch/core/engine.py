@@ -56,10 +56,16 @@ stats.
 
 With ``mesh=`` (a ``core.collectives.ProcessMesh``, one process a shard,
 the counterpart of the reference's ``shard_map``) the superstep functions
-run on one shard's rows: every tensor's leading axis is the local rows
-(``pg.n_rows``, 1 there) and ``pg.n_shards`` the destinations, and the
-collectives reach them as the ``comm`` argument, whose default is the
-emulated shim.
+of every in-memory mode, the logged one too, run on one shard's rows:
+every tensor's leading axis is the local rows (``pg.n_rows``, 1 there) and
+``pg.n_shards`` the destinations, and the collectives reach them as the
+``comm`` argument, whose default is the emulated shim.
+
+Float sums: the torch backend adds each destination's float32 messages in
+one stated order, left to right as they stand (``_combine_scatter``), on
+the CPU and on the card alike, so its runs are bit-reproducible and a mesh
+run equals the emulated one; the kernel backend's ``edge_combine`` adds
+with atomics in no fixed order.
 """
 
 from __future__ import annotations
@@ -83,6 +89,7 @@ from repro_torch.graph.partition import PartitionedGraph, shard_slice
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.digest import digest as kernel_digest
 from repro_torch.kernels.edge_combine import edge_combine
+from repro_torch.kernels.run_sum import run_sum
 
 
 def _shard_ctx(pg: PartitionedGraph, comm=coll) -> ShardContext:
@@ -141,16 +148,52 @@ def _gen_messages(program, values, degree, sp, w, active, step):
     return torch.where(aact, msg, e0), aact
 
 
-def _combine_scatter(program, P_dest, msg, dp, aact):
-    """IO-Recoded: direct in-memory scatter-combine into A_s (paper §5)."""
+#: ``order`` of :func:`_combine_scatter` for rows whose active messages
+#: already stand in destination runs
+PRESORTED = "presorted"
+
+
+def _ordered_sum(program) -> bool:
+    """Whether the program's combine is a float32 sum, the one whose bits
+    depend on the order it adds in."""
+    comb = program.combiner
+    return (comb is not None and comb.name == "sum"
+            and program.msg_dtype == torch.float32)
+
+
+def _combine_scatter(program, P_dest, msg, dp, aact, order=None):
+    """IO-Recoded: direct in-memory scatter-combine into A_s (paper §5).
+
+    A float32 sum adds each destination slot's messages in one stated
+    order, on the CPU and on the card alike: left to right from e0, as they
+    stand in the flat ``(rows, E)`` message array, which is the order of
+    ``index_add_`` and ``np.add.at`` on the CPU (``kernels/run_sum`` adds
+    in it on the card). ``order`` says how each row reaches destination
+    order: None sorts ``dp`` here (one stable sort a row); a ``(rows, E)``
+    tensor is that sort already made (the dense groups'
+    ``PartitionedGraph.dst_order``, whose padding, marked ``dp`` = -1 here,
+    comes last); :data:`PRESORTED` says each row's active messages already
+    stand in one run a destination, and only those are added. Slots left
+    out (inactive, padding) hold e0 = 0, and adding 0 changes no sum's
+    bits. MIN, MAX, integer sums and the counts are exact in any order and
+    keep ``scatter_reduce_`` and ``index_add_``."""
     n = msg.shape[0]
     comb = program.combiner
     ar = torch.arange(n, device=msg.device)[:, None]
-    idx = (dp.long() + ar * P_dest).reshape(-1)
-    A_s = comb.identity((n * P_dest,), program.msg_dtype, msg.device)
-    comb.scatter(A_s, idx, msg.reshape(-1))
+    idx = dp.long().clamp(min=0) + ar * P_dest
+    if _ordered_sum(program):
+        if order is PRESORTED:
+            key, order = torch.where(aact, idx, -1), None
+        else:
+            key = torch.where(dp >= 0, idx, -1)
+            if order is None:
+                order = torch.sort(dp, dim=-1, stable=True).indices
+        A_s = run_sum(key, msg, n * P_dest, order)
+    else:
+        A_s = comb.identity((n * P_dest,), program.msg_dtype, msg.device)
+        comb.scatter(A_s, idx.reshape(-1), msg.reshape(-1))
     cnt = torch.zeros(n * P_dest, dtype=torch.int32, device=msg.device)
-    cnt.index_add_(0, idx, aact.reshape(-1).to(torch.int32))
+    cnt.index_add_(0, idx.reshape(-1), aact.reshape(-1).to(torch.int32))
     return A_s.view(n, P_dest), cnt.view(n, P_dest)
 
 
@@ -162,7 +205,7 @@ def _combine_sort(program, P_dest, msg, dp, aact):
     smsg, sact = msg.gather(1, order), aact.gather(1, order)
     # _gen_messages already set the invalid entries to e0
     return _combine_scatter(program, P_dest, smsg, torch.where(sact, skey, 0),
-                            sact)
+                            sact, PRESORTED)
 
 
 def _contrib_dense(program, pg, values, active, step, dest,
@@ -170,6 +213,11 @@ def _contrib_dense(program, pg, values, active, step, dest,
     ar = torch.arange(pg.n_rows, device=pg.device)
     sp, dp, w = pg.src_pos[ar, dest], pg.dst_pos[ar, dest], pg.eweight[ar, dest]
     msg, aact = _gen_messages(program, values, pg.degree, sp, w, active, step)
+    if combine is _combine_scatter and _ordered_sum(program):
+        # the padding (src_pos -1) marked, to be left out of the sums
+        return _combine_scatter(program, pg.P, msg,
+                                torch.where(sp >= 0, dp, -1), aact,
+                                pg.dst_order[ar, dest])
     return combine(program, pg.P, msg, dp, aact)
 
 
@@ -270,7 +318,8 @@ def _basic_exchange(program, pg, values, active, step, comm=coll):
     slot = order // pg.E_cap * P + torch.where(valid, sdp, 0)
     del order
     # _gen_messages already set the invalid entries to e0
-    A_part, cnt_part = _combine_scatter(program, n * P, smsg, slot, valid)
+    A_part, cnt_part = _combine_scatter(program, n * P, smsg, slot, valid,
+                                        PRESORTED)
     A_r = program.combiner.reduce(A_part.view(rows, n, P), 1)
     return (A_r, cnt_part.view(rows, n, P).sum(1, dtype=torch.int32), sdp,
             smsg)
@@ -350,22 +399,22 @@ def superstep(program: VertexProgram, pg: PartitionedGraph, values, active,
 
 
 def superstep_logged(program: VertexProgram, pg: PartitionedGraph, values,
-                     active, step: int):
+                     active, step: int, comm=coll):
     """Recoded superstep that also materializes every shard's outgoing A_s
     for all destinations, so that the host loop can persist them ("keep all
     OMSs on local disk until a new checkpoint is written", §3.4). The
     exchange is an all_to_all of the combined buffers instead of the ring.
     Returns (values, active, StepStats, A_s_all, cnt_all), the last two
-    ``(n_src, n_dest, P)``."""
+    ``(rows, n_dest, P)``: on a mesh, this rank's row."""
     A_s_all, cnt_all = _contrib_all(program, pg, values, active, step)
-    A_r = program.combiner.reduce(coll.all_to_all(A_s_all), 1)
-    cnt = coll.all_to_all(cnt_all).sum(1, dtype=torch.int32)
+    A_r = program.combiner.reduce(comm.all_to_all(A_s_all), 1)
+    cnt = comm.all_to_all(cnt_all).sum(1, dtype=torch.int32)
     has_msg = (cnt > 0) & pg.vmask
     new_values, new_active = program.apply(
-        values, pg.degree, A_r, has_msg, active, step, _shard_ctx(pg)
+        values, pg.degree, A_r, has_msg, active, step, _shard_ctx(pg, comm)
     )
     return (*_finish_superstep(program, pg, values, new_values, new_active,
-                               cnt, has_msg), A_s_all, cnt_all)
+                               cnt, has_msg, comm), A_s_all, cnt_all)
 
 
 def _finish_superstep(program, pg, values, new_values, new_active, cnt,
@@ -702,21 +751,8 @@ def _host_copy(t: torch.Tensor) -> np.ndarray:
 # host driver
 # --------------------------------------------------------------------------
 
-_SLICE_5B = ("{} is not ported to the mesh yet (port slice 5b); run it "
-             "without mesh=")
-
-
-def _mesh_slice(pg: PartitionedGraph, mesh, mode: str, program,
-                message_log) -> PartitionedGraph:
-    """The mesh rank's rows of ``pg`` (or ``pg``, already that slice), after
-    the refusals of what the mesh does not run yet."""
-    if mode == "recoded_compact":
-        raise NotImplementedError(_SLICE_5B.format("mode='recoded_compact'"))
-    if mode == "basic" and program.combiner is None:
-        raise NotImplementedError(_SLICE_5B.format(
-            "mode='basic' without a combiner"))
-    if message_log is not None:
-        raise NotImplementedError(_SLICE_5B.format("message_log="))
+def _mesh_slice(pg: PartitionedGraph, mesh) -> PartitionedGraph:
+    """The mesh rank's rows of ``pg`` (or ``pg``, already that slice)."""
     if mesh.world_size != pg.n_shards:
         raise ValueError(f"a mesh of {mesh.world_size} ranks runs one shard "
                          f"a rank, and the partition has {pg.n_shards}")
@@ -726,6 +762,19 @@ def _mesh_slice(pg: PartitionedGraph, mesh, mode: str, program,
         raise ValueError(f"a rank takes the whole partition or its one-row "
                          f"slice, not {pg.n_rows} rows")
     return pg if pg.device == mesh.device else pg.to(mesh.device)
+
+
+def _same_mesh(what: str, obj, mesh) -> None:
+    """A message log or checkpointer writes one file a shard it holds: on a
+    mesh it must know the rank (``mesh=`` the engine's), and off one it must
+    not."""
+    if getattr(obj, "mesh", None) is not mesh:
+        raise ValueError(
+            f"the {what} was made with mesh={getattr(obj, 'mesh', None)!r} "
+            f"and the engine runs with mesh={mesh!r}: on a mesh, make it "
+            f"with mesh= the engine's (a MessageLog or Checkpointer; each "
+            f"rank writes its own shard's file)")
+
 
 @dataclass
 class SuperstepRecord:
@@ -762,8 +811,10 @@ class GraphDEngine:
     mesh's device: ``pg`` is the whole partition, whose rows for the
     mesh's rank the engine takes, or that rank's slice
     (``graph.partition.shard_slice``). ``run()`` then returns this shard's
-    rows, and every rank reads the same superstep stats. ``launch.mesh``
-    starts one such process a shard."""
+    rows, and every rank reads the same superstep stats. A message log and
+    a checkpointer on a mesh are made with ``mesh=`` the engine's, and each
+    rank writes its own shard's files (``core/checkpoint.py``).
+    ``launch.mesh`` starts one such process a shard."""
 
     def __init__(self, pg: PartitionedGraph, program: VertexProgram,
                  config: EngineConfig | None = None, *, device=None,
@@ -844,8 +895,10 @@ class GraphDEngine:
                     f"store (n={geom.n_shards}, P={geom.P}, B={geom.edge_block})"
                     f" vs pg (n={pg.n_shards}, P={pg.P}, B={pg.edge_block})"
                 )
+        if message_log is not None and mode != "streamed":
+            _same_mesh("message log", message_log, mesh)
         if mesh is not None:
-            pg = _mesh_slice(pg, mesh, mode, program, message_log)
+            pg = _mesh_slice(pg, mesh)
             device = mesh.device
         if message_log is not None and hasattr(message_log, "configure"):
             # run-file logs densify sparse runs back with the combiner
@@ -950,7 +1003,8 @@ class GraphDEngine:
     def step_logged(self, values, active, step: int):
         """The logged superstep; returns (values, active, StepStats,
         A_s_all, cnt_all)."""
-        return superstep_logged(self.program, self.pg, values, active, step)
+        return superstep_logged(self.program, self.pg, values, active, step,
+                                self.comm)
 
     def run(self, max_supersteps: int = 10_000, state=None,
             start_step: int = 0, verbose: bool = False, checkpointer=None,
@@ -965,9 +1019,8 @@ class GraphDEngine:
         if self.mode == "streamed":
             return self._run_streamed(max_supersteps, state, start_step,
                                       verbose, checkpointer, on_step)
-        if self.mesh is not None and checkpointer is not None:
-            raise NotImplementedError(_SLICE_5B.format(
-                "run(checkpointer=...) on a mesh"))
+        if checkpointer is not None:
+            _same_mesh("checkpointer", checkpointer, self.mesh)
         restored_from = None
         if (state is None and checkpointer is not None
                 and checkpointer.latest() is not None):

@@ -19,6 +19,7 @@ device once, at the end of ``build_partition``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import ClassVar
 
@@ -84,6 +85,20 @@ class PartitionedGraph:
         return dataclasses.replace(
             self, **{f: getattr(self, f).to(device) for f in self.TENSORS}
         )
+
+    @functools.cached_property
+    def dst_order(self) -> torch.Tensor:
+        """``(rows, n, E_cap)`` int32: each edge group's slots in the stable
+        order of their ``dst_pos``, the padding (``src_pos`` -1) last: the
+        order in which the engine adds a group's float messages
+        (``core/engine.py::_combine_scatter``). Sorted at first use, a row
+        at a time, and kept: E_cap int32 a group."""
+        out = torch.empty(self.dst_pos.shape, dtype=torch.int32,
+                          device=self.device)
+        for r in range(self.n_rows):
+            key = torch.where(self.src_pos[r] >= 0, self.dst_pos[r], self.P)
+            out[r] = torch.sort(key, dim=-1, stable=True).indices
+        return out
 
     @property
     def shape_summary(self) -> str:

@@ -20,7 +20,7 @@ _NET = ("CoordClient", "CoordServer", "FrameError", "PeerSender",
         "send_frame")
 
 #: the mesh launcher's public names, all in ``repro_torch.launch.mesh``
-_MESH = ("MeshFailed", "MeshResult", "MeshRun", "run_mesh",
+_MESH = ("CaseFiles", "MeshFailed", "MeshResult", "MeshRun", "run_mesh",
          "run_mesh_cases")
 
 __all__ = ["run_processes", *_NET, *_MESH]

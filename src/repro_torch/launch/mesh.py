@@ -27,7 +27,11 @@ is no retry.
 :func:`run_mesh_cases` runs several (program, config) cases in one spawn
 and returns what each rank measured as well: bytes a collective handed its
 backend, kernel launches, peak device memory, and start-up (torch import,
-rendezvous, slice load, spawn to the first superstep).
+rendezvous, slice load, spawn to the first superstep). A case may carry a
+:class:`CaseFiles`: a message log and checkpoints in directories every rank
+sees, made on each rank with its mesh (rank r writes shard r's files), so a
+later case can resume from them and ``core.checkpoint.recover_shard`` can
+recover a shard from them in one process.
 
 This module imports only the standard library at its top (the import
 hygiene pass holds it to that): the rank imports torch after it starts,
@@ -60,6 +64,24 @@ class MeshFailed(RuntimeError):
 
 
 @dataclass
+class CaseFiles:
+    """What a case of :func:`run_mesh_cases` keeps in directories every
+    rank sees: a message log (``log``: every superstep is then the logged
+    one) and checkpoints (``ckpt``, every ``every`` supersteps, the ``keep``
+    latest), each made on every rank with the mesh, so that rank r writes
+    shard r's files. ``save_initial`` checkpoints the initial state at step
+    0 first. A case whose ``ckpt`` already holds a checkpoint resumes from
+    its latest, as ``run(checkpointer=)`` does: a later case can resume
+    from an earlier one's."""
+
+    log: str | None = None
+    ckpt: str | None = None
+    every: int = 5
+    keep: int = 2
+    save_initial: bool = False
+
+
+@dataclass
 class MeshResult:
     """One case of a mesh run, gathered in shard order on the host."""
 
@@ -67,7 +89,9 @@ class MeshResult:
     active: Any  # (n, P) CPU bool tensor
     history: list  # SuperstepRecord; seconds: the slowest rank's
     #: per rank: ``seconds`` (a superstep), ``bytes`` (ProcessMesh.bytes
-    #: over the case), ``launches`` (edge_combine, digest), ``peak_bytes``
+    #: over the case), ``launches`` (edge_combine, digest, run_sum),
+    #: ``peak_bytes``, ``log_bytes`` (the rank's message-log files, summed
+    #: over supersteps) and ``ckpt_seconds`` (in ``Checkpointer.save``)
     ranks: list = field(default_factory=list)
 
 
@@ -144,7 +168,8 @@ def run_mesh_cases(pg, cases, *, backend: str | None = None, device=None,
                    gpus=None, workdir: str | None = None,
                    timeout: float = 600.0) -> MeshRun:
     """Run each ``(program, config)`` of ``cases`` in turn on one mesh of
-    ``pg.n_shards`` ranks (one spawn, one slice each). ``gpus`` names the
+    ``pg.n_shards`` ranks (one spawn, one slice each); a case may carry a
+    third item, its :class:`CaseFiles`. ``gpus`` names the
     GPUs the ranks take (default :func:`visible_gpus`): NCCL rank r gets
     ``gpus[r]``, gloo rank r ``gpus[r % len(gpus)]``. ``workdir`` (default a
     temporary directory, removed after) holds the slices, each rank's log
@@ -275,9 +300,10 @@ def _gather(workdir: str, case: int, n: int) -> MeshResult:
         h = dict(h, seconds=max(rep["history"][s]["seconds"]
                                 for rep in reports))
         history.append(SuperstepRecord(**h))
-    ranks = [dict(seconds=[h["seconds"] for h in rep["history"]],
-                  bytes=rep["bytes"], launches=rep["launches"],
-                  peak_bytes=rep["peak_bytes"]) for rep in reports]
+    ranks = [dict(rep, seconds=[h["seconds"] for h in rep["history"]])
+             for rep in reports]
+    for rank in ranks:
+        del rank["history"]
     return MeshResult(values=torch.from_numpy(np.concatenate(values)),
                       active=torch.from_numpy(np.concatenate(active)),
                       history=history, ranks=ranks)
@@ -297,11 +323,13 @@ def rank_main(workdir: str, rank: int, spawned: float) -> int:
     import torch
     import torch.distributed as dist
 
+    from repro_torch.core.checkpoint import Checkpointer, MessageLog
     from repro_torch.core.collectives import ProcessMesh
     from repro_torch.core.engine import GraphDEngine
     from repro_torch.graph.partition import load_shard_slice
     from repro_torch.kernels.digest import digest
     from repro_torch.kernels.edge_combine import edge_combine
+    from repro_torch.kernels.run_sum import run_sum
 
     import_s = time.perf_counter() - t0
     n, backend = int(spec["world_size"]), spec["backend"]
@@ -334,31 +362,49 @@ def rank_main(workdir: str, rank: int, spawned: float) -> int:
         with open(os.path.join(workdir, CASES), "rb") as fh:
             cases = pickle.load(fh)  # written by this rank's launcher
         first = None
-        for c, (program, config) in enumerate(cases):
+        for c, (program, config, *rest) in enumerate(cases):
+            files = rest[0] if rest else CaseFiles()
+            log = (MessageLog(files.log, mesh=mesh) if files.log is not None
+                   else None)
+            ckpt = (Checkpointer(files.ckpt, files.every, files.keep,
+                                 mesh=mesh)
+                    if files.ckpt is not None else None)
             mesh.reset()
-            edge_combine.launches = digest.launches = 0
+            edge_combine.launches = digest.launches = run_sum.launches = 0
             if cuda:
                 torch.cuda.reset_peak_memory_stats()
-            eng = GraphDEngine(pg, program, config, mesh=mesh)
+            eng = GraphDEngine(pg, program, config, mesh=mesh,
+                               message_log=log)
+            if ckpt is not None and files.save_initial:
+                ckpt.save(0, *eng.init())
             if first is None:
                 # analysis: allow[liveness-clock] a start-up report
                 first = time.time()
+            log_bytes = [0]
 
-            def on_step(rec, _state, c=c):
+            def on_step(rec, _state, c=c, log=log, log_bytes=log_bytes):
+                if log is not None:
+                    log_bytes[0] += os.path.getsize(os.path.join(
+                        log.dir, f"step-{rec.step:06d}",
+                        f"shard-{rank}.npz"))
                 print(f"rank {rank} case {c}: superstep {rec.step} "
                       f"active {rec.n_active} msgs {rec.n_msgs} "
                       f"[{rec.mode}] {rec.seconds * 1e3:.3f} ms", flush=True)
 
-            (v, a), hist = eng.run(on_step=on_step)
+            (v, a), hist = eng.run(on_step=on_step, checkpointer=ckpt)
             np.savez(_out(workdir, c, rank, "npz"), values=v.cpu().numpy(),
                      active=a.cpu().numpy())
             report = dict(
                 history=[dataclasses.asdict(h) for h in hist],
                 bytes=dict(mesh.bytes),
                 launches=dict(edge_combine=edge_combine.launches,
-                              digest=digest.launches),
+                              digest=digest.launches,
+                              run_sum=run_sum.launches),
                 peak_bytes=(torch.cuda.max_memory_allocated() if cuda
-                            else None))
+                            else None),
+                log_bytes=log_bytes[0] if log is not None else None,
+                ckpt_seconds=(ckpt.save_seconds if ckpt is not None
+                              else None))
             with open(_out(workdir, c, rank, "json"), "w") as fh:
                 json.dump(report, fh)
         with open(os.path.join(workdir, f"startup-{rank}.json"), "w") as fh:

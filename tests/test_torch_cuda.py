@@ -1,8 +1,9 @@
 """The port's kernels on the card against their plain versions, the
 engine's kernel backend against its torch backend on the card, the other
 in-memory modes and the recovery layer on the card against the CPU, the
-flat skip() prefix at a size where n*P passes 2^24, and the multi-process
-launch on the card over both transports.
+flat skip() prefix at a size where n*P passes 2^24, the multi-process
+launch on the card over both transports, the torch backend's ordered float
+sums (``kernels/run_sum``) bit for bit against the CPU, and the mesh.
 
 These tests need a CUDA device and skip without one. They import neither
 jax nor the JAX package, so they run on the GPU machine as they are:
@@ -20,13 +21,16 @@ from repro_torch.core import (
     BFS, SSSP, Checkpointer, DistinctInLabels, EngineConfig, GraphDEngine,
     HashMin, LabelSpread, MessageLog, PageRank, SecondMinLabel, recover_shard,
 )
-from repro_torch.core.engine import _active_prefix
+from repro_torch.core.engine import (
+    PRESORTED, _active_prefix, _combine_scatter, _combine_sort,
+)
 from repro_torch.graph import Graph, partition_graph, rmat_graph
 from repro_torch.kernels import ops
 from repro_torch.kernels.digest import digest, digest_plain
 from repro_torch.kernels.edge_combine import (
     COMBINERS, edge_combine, edge_combine_plain, pair_counts,
 )
+from repro_torch.kernels.run_sum import run_sum, run_sum_plain
 
 
 @pytest.fixture
@@ -40,6 +44,100 @@ def cuda():
 def graph():
     g = rmat_graph(scale=10, edge_factor=8, seed=3, weights="uniform")
     return partition_graph(g, 4, edge_block=64, device="cpu")
+
+
+def _runs(seed, rows, E, n_out, hub_share, skip_share=0.0):
+    """Keys (some skipped) with hubs far longer than a warp's chunk, values
+    of mixed magnitudes, and the stable order of the keys in each row."""
+    rng = np.random.default_rng(seed)
+    key = rng.integers(0, n_out, (rows, E))
+    key[rng.random((rows, E)) < hub_share] = 0
+    key[rng.random((rows, E)) < skip_share] = -1
+    key = np.where(key >= 0, key + np.arange(rows)[:, None] * n_out, -1)
+    val = (rng.standard_normal((rows, E))
+           * 10.0 ** rng.integers(-4, 5, (rows, E))).astype(np.float32)
+    perm = np.argsort(key, axis=-1, kind="stable")
+    return torch.from_numpy(key), torch.from_numpy(val), torch.from_numpy(perm)
+
+
+@pytest.mark.parametrize("perm_dtype", [None, torch.int32, torch.int64])
+@pytest.mark.parametrize("rows,E,n_out,hub_share", [
+    (1, 1, 1, 0.0), (1, 300, 7, 0.0), (3, 5000, 2000, 0.0),
+    (2, 200_000, 50_000, 0.5), (8, 70_000, 3_000, 0.2)])
+def test_run_sum_kernel_equals_the_cpu(cuda, perm_dtype, rows, E, n_out,
+                                       hub_share):
+    """The kernel on the card against its plain version on the CPU, bit for
+    bit: short runs, runs spanning many warps' chunks (a hub of 100,000
+    values), skipped keys, positions read directly or through an int32 or
+    int64 permutation."""
+    key, val, perm = _runs(rows, rows, E, n_out, hub_share, 0.1)
+    if perm_dtype is None:  # positions already in order
+        key, val, perm = key.gather(1, perm), val.gather(1, perm), None
+    else:
+        perm = perm.to(perm_dtype)
+    want = run_sum_plain(key, val, rows * n_out, perm)
+    before = run_sum.launches
+    got = run_sum(key.to(cuda), val.to(cuda), rows * n_out,
+                  None if perm is None else perm.to(cuda))
+    torch.cuda.synchronize()
+    assert run_sum.launches == before + 1
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("caller", ["dense", "per-call", "basic_sc",
+                                    "basic"])
+def test_combine_scatter_on_card_equals_cpu(cuda, caller):
+    """_combine_scatter's float sum on the card gives the CPU's bits for
+    each caller's inputs, with hub destinations of 30,000 messages; twice
+    on the card, the same bits."""
+    rng = np.random.default_rng(11)
+    rows, E, P = 4, 60_000, 5_000
+    dp = rng.integers(0, P, (rows, E)).astype(np.int32)
+    dp[rng.random((rows, E)) < 0.5] = 3
+    msg = (rng.standard_normal((rows, E))
+           * 10.0 ** rng.integers(-4, 5, (rows, E))).astype(np.float32)
+    aact = rng.random((rows, E)) < 0.8
+    msg = np.where(aact, msg, np.float32(0))
+    prog = PageRank(1)
+
+    def call(dev):
+        m, d, a = (torch.from_numpy(x).to(dev) for x in (msg, dp, aact))
+        if caller == "dense":
+            order = torch.sort(d, dim=-1, stable=True).indices.int()
+            return _combine_scatter(prog, P, m, d, a, order)
+        if caller == "per-call":
+            return _combine_scatter(prog, P, m, d, a)
+        if caller == "basic_sc":
+            return _combine_sort(prog, P, m, d, a)
+        sdp, order = torch.sort(torch.where(a, d, P), dim=-1, stable=True)
+        valid = sdp < P
+        slot = order // (E // 4) * P + torch.where(valid, sdp, 0)
+        return _combine_scatter(prog, 4 * P, m.gather(1, order), slot,
+                                valid, PRESORTED)
+
+    A_cpu, c_cpu = call("cpu")
+    A1, c1 = call(cuda)
+    A2, _ = call(cuda)
+    assert torch.equal(A1.cpu().view(torch.int32), A_cpu.view(torch.int32))
+    assert torch.equal(A2, A1) and torch.equal(c1.cpu(), c_cpu)
+
+
+@pytest.mark.parametrize("mode", ["recoded", "basic", "basic_sc",
+                                  "recoded_compact"])
+def test_torch_backend_is_reproducible_on_card(cuda, graph, mode):
+    """Two emulated PageRank runs of one mode on the card are identical,
+    bit for bit (recoded_compact's bf16 wire included), and the run
+    launched the ordered sum."""
+    pg, _ = graph
+    before = run_sum.launches
+    runs = [GraphDEngine(pg, PageRank(6), EngineConfig(
+        mode=mode, backend="torch"), device="cuda").run()
+        for _ in range(2)]
+    (v1, a1), h1 = runs[0]
+    (v2, a2), h2 = runs[1]
+    assert torch.equal(v1, v2) and torch.equal(a1, a2)
+    assert [h.agg for h in h1] == [h.agg for h in h2]
+    assert run_sum.launches > before
 
 
 @pytest.mark.parametrize("density", [0.0, 0.05, 1.0])
@@ -567,10 +665,13 @@ def test_mesh_on_card(cuda, tmp_path, backend):
     """GraphDEngine(mesh=) on the card through launch.mesh: gloo with two
     ranks on one card (through host buffers), NCCL with one rank a GPU
     where there are two GPUs or more. Against the emulated run on the card:
-    Hash-Min exactly, PageRank within 1e-5 of its largest value (float
-    atomics are unordered on the card); both kernels launch on every rank,
-    edge_combine n times and digest n-1 times a superstep."""
-    from repro_torch.launch.mesh import run_mesh_cases, visible_gpus
+    Hash-Min exactly, the kernel backend's PageRank within 1e-5 of its
+    largest value (edge_combine's float atomics are unordered); the torch
+    backend's recoded_compact and logged PageRank (a message log and a
+    checkpoint every 2, resumed from it after) bit for bit, and the files
+    the ranks wrote equal the emulated run's. Both kernels launch on every
+    rank, edge_combine n times and digest n-1 times a superstep."""
+    from repro_torch.launch.mesh import CaseFiles, run_mesh_cases, visible_gpus
 
     gpus = visible_gpus()
     if backend == "nccl" and len(gpus) < 2:
@@ -579,24 +680,55 @@ def test_mesh_on_card(cuda, tmp_path, backend):
     n = 2
     g = rmat_graph(scale=10, edge_factor=8, seed=3, weights="uniform")
     pg, _ = partition_graph(g, n, edge_block=64)
+    torch_cfg = EngineConfig(backend="torch")
+    mesh_files = CaseFiles(log=str(tmp_path / "m-log"),
+                           ckpt=str(tmp_path / "m-ckpt"), every=2)
     cases = [(PageRank(4), EngineConfig(backend="kernel")),
-             (HashMin(), EngineConfig(backend="kernel"))]
+             (HashMin(), EngineConfig(backend="kernel")),
+             (PageRank(4), EngineConfig(mode="recoded_compact",
+                                        backend="torch")),
+             (PageRank(5), torch_cfg, mesh_files),
+             (PageRank(5), torch_cfg, mesh_files)]
     run = run_mesh_cases(pg, cases, backend=backend,
                          gpus=gpus[:1] if backend == "gloo" else gpus[:n],
                          workdir=str(tmp_path / "mesh"), timeout=300)
-    for (prog, cfg), res in zip(cases, run.results):
-        (v, a), hist = GraphDEngine(pg, prog, cfg).run()
+    emu_log = MessageLog(str(tmp_path / "e-log"))
+    emu_ck = Checkpointer(str(tmp_path / "e-ckpt"), every=2)
+    for i, (case, res) in enumerate(zip(cases, run.results)):
+        prog, cfg = case[0], case[1]
+        logged = len(case) > 2
+        (v, a), hist = GraphDEngine(
+            pg, prog, cfg, message_log=emu_log if logged else None).run(
+                checkpointer=emu_ck if logged else None)
         assert [(h.n_active, h.n_msgs) for h in res.history] == \
             [(h.n_active, h.n_msgs) for h in hist]
         assert torch.equal(res.active, a.cpu())
-        if isinstance(prog, HashMin):
-            assert torch.equal(res.values, v.cpu())
+        if isinstance(prog, HashMin) or cfg.backend == "torch":
+            assert torch.equal(res.values, v.cpu()), i
         else:
             gap = float((res.values - v.cpu()).abs().max())
             assert gap < 1e-5 * float(v.abs().max())
         steps = len(hist)
         for r in res.ranks:
-            assert r["launches"] == dict(edge_combine=n * steps,
-                                         digest=(n - 1) * steps)
-            assert r["bytes"]["ring"] == (n - 1) * pg.P * 8 * steps
+            if cfg.backend == "kernel":
+                assert r["launches"]["edge_combine"] == n * steps
+                assert r["launches"]["digest"] == (n - 1) * steps
+                assert r["bytes"]["ring"] == (n - 1) * pg.P * 8 * steps
+            else:
+                assert r["launches"]["run_sum"] > 0
+                per = 3 if cfg.mode == "recoded_compact" else 8
+                assert r["bytes"]["all_to_all"] == n * pg.P * per * steps
             assert (r["bytes"]["staged"] > 0) == (backend == "gloo")
+    resumed = run.results[-1]
+    assert resumed.history[0].restored_from == 4
+    for sub in ("log", "ckpt"):
+        for d, _, fs in os.walk(str(tmp_path / f"e-{sub}")):
+            for f in fs:
+                rel = os.path.relpath(os.path.join(d, f),
+                                      str(tmp_path / f"e-{sub}"))
+                mine = os.path.join(str(tmp_path / f"m-{sub}"), rel)
+                if f.endswith(".npz"):
+                    with np.load(os.path.join(d, f)) as x, \
+                            np.load(mine) as y:
+                        for k in x.files:
+                            np.testing.assert_array_equal(x[k], y[k])

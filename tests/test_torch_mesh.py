@@ -6,8 +6,11 @@ reference's ``vmap`` run.
 One mesh is spawned per world size and runs every case in turn (the
 spawn, a torch import a rank, costs more than the cases). Twins of
 tests/test_distributed.py's shard_map tests: all modes' PageRank (:29),
-sparse SSSP (:57), the kernel backend (:87)."""
+sparse SSSP (:57), the kernel backend (:87), the logged step with
+checkpoints and recovery (:113), the ring against the logged all_to_all
+(:221)."""
 
+import json
 import os
 import signal
 import subprocess
@@ -21,6 +24,7 @@ import pytest
 import torch
 
 import repro.core as rc
+import repro.core.checkpoint as rckpt
 import repro_torch.core as tc
 from repro.graph import partition_graph, rmat_graph
 from repro_torch import convert
@@ -28,7 +32,9 @@ from repro_torch.core.collectives import ProcessMesh
 from repro_torch.graph.partition import (
     PartitionedGraph, load_shard_slice, shard_slice, write_shard_slice,
 )
-from repro_torch.launch.mesh import MeshFailed, run_mesh, run_mesh_cases
+from repro_torch.launch.mesh import (
+    CaseFiles, MeshFailed, run_mesh, run_mesh_cases,
+)
 
 torch.set_num_threads(1)
 
@@ -61,7 +67,33 @@ CASES = {
                                            **SPARSE)),
     "hashmin-basic-torch": (lambda s: tc.HashMin(),
                             dict(mode="basic", backend="torch")),
+    "pagerank-recoded_compact-torch": (lambda s: tc.PageRank(SUPERSTEPS),
+                                       dict(mode="recoded_compact",
+                                            backend="torch")),
+    "distinct-basic-torch": (lambda s: tc.DistinctInLabels(n_groups=8,
+                                                           rounds=2),
+                             dict(mode="basic", backend="torch")),
+    "secondmin-basic-torch": (lambda s: tc.SecondMinLabel(),
+                              dict(mode="basic", backend="torch")),
 }
+
+#: case -> (program factory, CaseFiles fields): the logged step (every
+#: superstep through a message log) with checkpoints, run after CASES in
+#: this order, each world size in directories of its own. The resumed case
+#: restarts the first from its step-4 checkpoint; "every2" is the twin of
+#: tests/test_distributed.py:113; Hash-Min's is the logged half of :221.
+LOGGED = {
+    "pagerank-logged": (lambda: tc.PageRank(6),
+                        dict(log="log", ckpt="ckpt", every=4,
+                             save_initial=True)),
+    "pagerank-logged-resumed": (lambda: tc.PageRank(6),
+                                dict(log="log", ckpt="ckpt", every=4)),
+    "pagerank-logged-every2": (lambda: tc.PageRank(6),
+                               dict(log="log2", ckpt="ckpt2", every=2,
+                                    save_initial=True)),
+    "hashmin-logged": (tc.HashMin, dict(log="log3")),
+}
+LOGGED_CFG = dict(backend="torch")
 
 
 def _env():
@@ -94,9 +126,38 @@ def _cases(src):
             for make, cfg in CASES.values()]
 
 
+def _files(root, fields):
+    """CaseFiles with its directories under ``root``."""
+    return CaseFiles(**{k: os.path.join(root, v) if k in ("log", "ckpt")
+                        else v for k, v in fields.items()})
+
+
+def _logged_cases(root):
+    return [(make(), tc.EngineConfig(**LOGGED_CFG), _files(root, fields))
+            for make, fields in LOGGED.values()]
+
+
 def _emulated(tpg, program, config):
     (v, a), hist = tc.GraphDEngine(tpg, program, config, device="cpu").run()
     return v, a, hist
+
+
+def _emulated_logged(tpg, root):
+    """The LOGGED cases in order on the emulated engine, with an
+    unmeshed MessageLog and Checkpointer in ``root``: {case: (v, a,
+    history)}."""
+    out = {}
+    for case, (program, config, files) in zip(LOGGED, _logged_cases(root)):
+        log = tc.MessageLog(files.log) if files.log else None
+        ck = (tc.Checkpointer(files.ckpt, files.every, files.keep)
+              if files.ckpt else None)
+        eng = tc.GraphDEngine(tpg, program, config, device="cpu",
+                              message_log=log)
+        if files.save_initial:
+            ck.save(0, *eng.init())
+        (v, a), hist = eng.run(checkpointer=ck)
+        out[case] = (v, a, hist)
+    return out
 
 
 def _stats(hist):
@@ -105,18 +166,38 @@ def _stats(hist):
 
 
 @pytest.fixture(scope="module")
-def meshes():
-    """world size -> (port partition, source, MeshRun of every case), run
-    once each."""
+def meshes(tmp_path_factory):
+    """world size -> (port partition, source, MeshRun of every case, the
+    directory of the logged cases' files), run once each."""
     runs = {}
 
     def get(n):
         if n not in runs:
             _, tpg, src = _setup(n)
+            root = str(tmp_path_factory.mktemp(f"mesh{n}"))
             runs[n] = (tpg, src, run_mesh_cases(
-                tpg, _cases(src), device="cpu", timeout=TIMEOUT))
+                tpg, _cases(src) + _logged_cases(root), device="cpu",
+                timeout=TIMEOUT), root)
         return runs[n]
     return get
+
+
+@pytest.fixture(scope="module")
+def emulated_logged(tmp_path_factory):
+    """world size -> (the LOGGED cases' emulated results, their files'
+    directory)."""
+    runs = {}
+
+    def get(n):
+        if n not in runs:
+            root = str(tmp_path_factory.mktemp(f"emulated{n}"))
+            runs[n] = (_emulated_logged(_setup(n)[1], root), root)
+        return runs[n]
+    return get
+
+
+def _result(run, case):
+    return run.results[(list(CASES) + list(LOGGED)).index(case)]
 
 
 # --------------------------------------------------------------------------
@@ -128,8 +209,8 @@ def meshes():
 def test_mesh_equals_emulated(meshes, n, case):
     """Values, active bitmaps, every superstep's stats (the aggregator and
     the dense/sparse decision too) and the halt step, bit for bit."""
-    tpg, src, run = meshes(n)
-    res = run.results[list(CASES).index(case)]
+    tpg, src, run, _ = meshes(n)
+    res = _result(run, case)
     make, cfg = CASES[case]
     v, a, hist = _emulated(tpg, make(src), tc.EngineConfig(**cfg))
     assert res.values.dtype == v.dtype and res.values.shape == v.shape
@@ -139,21 +220,33 @@ def test_mesh_equals_emulated(meshes, n, case):
     if case.startswith("pagerank"):
         # the reference's own bound between shard_map and vmap (:52)
         assert float((res.values - v).abs().max()) < 1e-7
-    assert all(r["launches"] == dict(edge_combine=0, digest=0)
+    assert all(r["launches"] == dict(edge_combine=0, digest=0, run_sum=0)
                for r in res.ranks)  # the CPU runs the plain versions
+
+
+def _a2a_model(case, tpg, n):
+    """(ring, all_to_all) bytes a rank hands its backend a superstep."""
+    if "-basic-" in case:  # a payload and a destination an edge slot
+        return 0, n * tpg.E_cap * 8
+    if "-recoded_compact-" in case:  # a bf16 value and an int8 flag a slot
+        return 0, n * tpg.P * 3
+    if "-logged" in case:  # a float32 value and an int32 count a slot
+        return 0, n * tpg.P * 8
+    return (n - 1) * tpg.P * 8, 0  # the ring: a value and a count
 
 
 @pytest.mark.parametrize("n", WORLD)
 def test_mesh_bytes_match_the_model(meshes, n):
     """What each rank hands the backend a superstep: the ring (n-1)·P·8
     bytes (value and count), basic's all_to_all n·E_cap·8 (payload and
-    destination), five 8-byte reductions, PageRank's 4-byte aggregator;
-    nothing staged on the CPU."""
-    tpg, _, run = meshes(n)
-    for case, res in zip(CASES, run.results):
+    destination), recoded_compact's n·P·3 (a bf16 value and an int8 flag),
+    the logged step's n·P·8 (a float32 value and an int32 count), five
+    8-byte reductions, PageRank's 4-byte aggregator; nothing staged on the
+    CPU, and a checkpoint's barriers uncounted."""
+    tpg, _, run, _ = meshes(n)
+    for case, res in zip(list(CASES) + list(LOGGED), run.results):
         steps = len(res.history)
-        ring = 0 if "-basic-" in case else (n - 1) * tpg.P * 8
-        a2a = n * tpg.E_cap * 8 if "-basic-" in case else 0
+        ring, a2a = _a2a_model(case, tpg, n)
         gather = 4 if case.startswith("pagerank") else 0
         want = dict(ring=ring * steps, all_to_all=a2a * steps,
                     gather=gather * steps, reduce=40 * steps, staged=0)
@@ -167,8 +260,8 @@ def test_sparse_sssp_twin(meshes, n):
     takes adapt_threshold in [0, 1]; 0 keeps every superstep dense). On 8
     ranks, the reference's configuration, the mesh takes the sparse
     superstep at least once (on 4 the groups are too long for the cap)."""
-    tpg, src, run = meshes(n)
-    res = run.results[list(CASES).index("sssp-recoded-torch-sparse")]
+    tpg, src, run, _ = meshes(n)
+    res = _result(run, "sssp-recoded-torch-sparse")
     v, a, hist = _emulated(tpg, tc.SSSP(src),
                            tc.EngineConfig(adapt_threshold=0,
                                            backend="torch"))
@@ -183,8 +276,8 @@ def test_sparse_sssp_twin(meshes, n):
 def test_kernel_backend_twin(meshes):
     """tests/test_distributed.py:87: the kernel backend on a 4-rank mesh
     (its plain versions here) within 1e-6 of the emulated torch backend."""
-    tpg, _, run = meshes(4)
-    res = run.results[list(CASES).index("pagerank-recoded-kernel")]
+    tpg, _, run, _ = meshes(4)
+    res = _result(run, "pagerank-recoded-kernel")
     v, _, _ = _emulated(tpg, tc.PageRank(SUPERSTEPS),
                         tc.EngineConfig(backend="torch"))
     assert float((res.values.double() - v.double()).abs().max()) < 1e-6
@@ -203,6 +296,11 @@ REF = {
     "hashmin-recoded-kernel": (lambda s: rc.HashMin(), {}),
     "sssp-recoded-kernel": (lambda s: rc.SSSP(s), {}),
     "bfs-recoded-kernel": (lambda s: rc.BFS(s), {}),
+    "distinct-basic-torch": (lambda s: rc.DistinctInLabels(n_groups=8,
+                                                           rounds=2),
+                             dict(mode="basic")),
+    "secondmin-basic-torch": (lambda s: rc.SecondMinLabel(),
+                              dict(mode="basic")),
 }
 
 
@@ -212,8 +310,8 @@ def test_mesh_against_the_reference(meshes, case):
     same partition: PageRank within 1e-5 (tests/test_torch_engine.py),
     the rest exactly, with its superstep stats."""
     pg, _, src = _setup(8)
-    _, _, run = meshes(8)
-    res = run.results[list(CASES).index(case)]
+    _, _, run, _ = meshes(8)
+    res = _result(run, case)
     make, cfg = REF[case]
     (v_ref, a_ref), h_ref = rc.GraphDEngine(
         pg, make(src), config=rc.EngineConfig(**cfg)).run()
@@ -227,6 +325,159 @@ def test_mesh_against_the_reference(meshes, case):
     np.testing.assert_array_equal(res.active.numpy(), a_ref)
     assert [(h.n_active, h.n_msgs) for h in res.history] == \
         [(h.n_active, h.n_msgs) for h in h_ref]
+
+
+# --------------------------------------------------------------------------
+# the logged step, the message log and checkpoints on the mesh
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", list(LOGGED))
+@pytest.mark.parametrize("n", WORLD)
+def test_logged_mesh_equals_emulated(meshes, emulated_logged, n, case):
+    """Each logged case on the mesh against the same cases run in turn on
+    the emulated engine with an unmeshed log and checkpointer: values,
+    bitmaps and every superstep's stats (the step it resumed from too),
+    bit for bit."""
+    _, _, run, _ = meshes(n)
+    res = _result(run, case)
+    v, a, hist = emulated_logged(n)[0][case]
+    assert torch.equal(res.values, v) and torch.equal(res.active, a)
+    assert _stats(res.history) == _stats(hist)
+    assert [h.restored_from for h in res.history] == \
+        [h.restored_from for h in hist]
+    assert all(r["launches"] == dict(edge_combine=0, digest=0, run_sum=0)
+               for r in res.ranks)
+
+
+def _tree(root):
+    """{relative path: file} under ``root``."""
+    return {os.path.relpath(os.path.join(d, f), root): os.path.join(d, f)
+            for d, _, fs in os.walk(root) for f in fs}
+
+
+@pytest.mark.parametrize("n", WORLD)
+def test_mesh_files_equal_emulated(meshes, emulated_logged, n):
+    """The message logs and checkpoints the ranks wrote, one file a shard,
+    are the emulated engine's, file for file: the same names (stale steps
+    collected alike), the same arrays bit for bit, the same manifests
+    (n_shards the world size)."""
+    mesh_root = meshes(n)[3]
+    emu_root = emulated_logged(n)[1]
+    got, want = _tree(mesh_root), _tree(emu_root)
+    assert sorted(got) == sorted(want) and got
+    for rel, path in want.items():
+        if rel.endswith(".json"):
+            with open(path) as a, open(got[rel]) as b:
+                assert json.load(a) == json.load(b), rel
+            continue
+        with np.load(path) as a, np.load(got[rel]) as b:
+            assert sorted(a.files) == sorted(b.files), rel
+            for k in a.files:
+                assert a[k].dtype == b[k].dtype, (rel, k)
+                np.testing.assert_array_equal(a[k], b[k], err_msg=rel)
+    with open(os.path.join(mesh_root, "ckpt", "step-000004",
+                           "manifest.json")) as fh:
+        assert json.load(fh)["n_shards"] == n
+
+
+@pytest.mark.parametrize("n", WORLD)
+def test_resumed_mesh_run_equals_the_live_run(meshes, n):
+    """A case restarted on the mesh from the live case's step-4 checkpoint
+    (each rank restoring its own shard) runs supersteps 4 and 5 and ends
+    bit-identical to the live run."""
+    _, _, run, _ = meshes(n)
+    live = _result(run, "pagerank-logged")
+    resumed = _result(run, "pagerank-logged-resumed")
+    assert [h.step for h in resumed.history] == [4, 5]
+    assert resumed.history[0].restored_from == 4
+    assert live.history[0].restored_from == 0
+    assert torch.equal(resumed.values, live.values)
+    assert torch.equal(resumed.active, live.active)
+    assert _stats(resumed.history) == _stats(live.history)[4:]
+
+
+@pytest.mark.parametrize("n", WORLD)
+def test_recover_shard_from_what_the_mesh_wrote(meshes, n):
+    """recover_shard in this process, on the whole partition, from the
+    mesh's step-4 checkpoint and its logs of supersteps 4 and 5: the last
+    shard equals the live mesh run's within the reference's 1e-6, its
+    bitmap exactly."""
+    tpg, _, run, root = meshes(n)
+    live = _result(run, "pagerank-logged")
+    failed = n - 1
+    ck = tc.Checkpointer(os.path.join(root, "ckpt"), every=4)
+    assert ck.latest() == 4
+    vj, aj = tc.recover_shard(tpg, tc.PageRank(6), failed, ck,
+                              tc.MessageLog(os.path.join(root, "log")), 6)
+    assert float((vj - live.values[failed]).abs().max()) < 1e-6
+    assert torch.equal(aj, live.active[failed])
+
+
+def test_logged_mode_and_recovery_twin(meshes):
+    """tests/test_distributed.py:113 on 4 gloo ranks: logged PageRank with
+    a checkpoint every 2 after a step-0 save equals the unlogged run, and
+    shard 3 recovered from the mesh's files is within 1e-6 of it."""
+    tpg, _, run, root = meshes(4)
+    res = _result(run, "pagerank-logged-every2")
+    v_ref, _, _ = _emulated(tpg, tc.PageRank(6),
+                            tc.EngineConfig(backend="torch"))
+    assert torch.allclose(res.values, v_ref)
+    vj, _ = tc.recover_shard(tpg, tc.PageRank(6), 3,
+                             tc.Checkpointer(os.path.join(root, "ckpt2"),
+                                             every=2),
+                             tc.MessageLog(os.path.join(root, "log2")), 6)
+    assert float((vj - v_ref[3]).abs().max()) < 1e-6
+
+
+@pytest.mark.parametrize("n", WORLD)
+def test_ring_equals_logged_twin(meshes, n):
+    """tests/test_distributed.py:221: on the mesh, Hash-Min over the ring
+    and over the logged all_to_all give the same labels, bitmaps and
+    superstep stats."""
+    _, _, run, _ = meshes(n)
+    ring = _result(run, "hashmin-recoded-kernel")
+    logged = _result(run, "hashmin-logged")
+    assert torch.equal(ring.values, logged.values)
+    assert torch.equal(ring.active, logged.active)
+    assert [(h.n_active, h.n_msgs) for h in ring.history] == \
+        [(h.n_active, h.n_msgs) for h in logged.history]
+
+
+@pytest.mark.parametrize("n", WORLD)
+def test_reference_reads_what_the_mesh_wrote(meshes, n):
+    """The JAX package's Checkpointer and MessageLog read the mesh's files
+    and give the port's arrays: the checkpoint is the live run's state at
+    its step, and the logged A_s for a destination are the port reader's."""
+    tpg, _, run, root = meshes(n)
+    ck_dir, log_dir = os.path.join(root, "ckpt"), os.path.join(root, "log")
+    rv, ra, step = rckpt.Checkpointer(ck_dir).restore()
+    tv, ta, tstep = tc.Checkpointer(ck_dir).restore(device="cpu")
+    assert step == tstep == 4
+    np.testing.assert_array_equal(np.asarray(rv), tv.numpy())
+    np.testing.assert_array_equal(np.asarray(ra), ta.numpy())
+    for dest in range(n):
+        ref = rckpt.MessageLog(log_dir).load_for_dest(5, dest, n, -1)
+        port = tc.MessageLog(log_dir).load_for_dest(5, dest, n, -1)
+        assert len(ref) == len(port) == n
+        for (rA, rc_), (pA, pc) in zip(ref, port):
+            np.testing.assert_array_equal(rA, pA)
+            np.testing.assert_array_equal(rc_, pc)
+
+
+@pytest.mark.parametrize("n", WORLD)
+def test_mesh_log_bytes_and_checkpoint_seconds(meshes, n):
+    """Each rank reports the bytes of its own log files, an npz of n·P
+    float32 values and n·P int32 counts a superstep (the archive's headers
+    under 1 KiB), and the seconds its checkpoints took."""
+    tpg, _, run, _ = meshes(n)
+    res = _result(run, "pagerank-logged")
+    steps = len(res.history)
+    for r in res.ranks:
+        assert steps * n * tpg.P * 8 <= r["log_bytes"] \
+            < steps * (n * tpg.P * 8 + 1024)
+        assert r["ckpt_seconds"] > 0
+    assert all(r["log_bytes"] is None and r["ckpt_seconds"] is None
+               for r in _result(run, "pagerank-recoded-torch").ranks)
 
 
 # --------------------------------------------------------------------------
@@ -331,30 +582,50 @@ def test_one_rank_mesh_in_process():
 # what the mesh refuses
 # --------------------------------------------------------------------------
 
-def _refusals(tmp_path):
+def _unranked_files(tmp_path):
     pg = _setup(2)[1]
     mesh = ProcessMesh(0, 2, backend="gloo", device="cpu")
-    eng = lambda prog, cfg, **kw: tc.GraphDEngine(pg, prog, cfg, mesh=mesh,
-                                                  **kw)
+    eng = lambda log, m=mesh: tc.GraphDEngine(
+        pg, tc.PageRank(2), tc.EngineConfig(backend="torch"), mesh=m,
+        message_log=log)
     return {
-        "recoded_compact": lambda: eng(tc.PageRank(2), tc.EngineConfig(
-            mode="recoded_compact", backend="torch")),
-        "message_log": lambda: eng(tc.PageRank(2), tc.EngineConfig(
-            backend="torch"), message_log=tc.MessageLog(str(tmp_path / "l"))),
-        "checkpointer": lambda: eng(tc.PageRank(2), tc.EngineConfig(
-            backend="torch")).run(checkpointer=tc.Checkpointer(
-                str(tmp_path / "c"), every=1)),
-        "basic without a combiner": lambda: eng(
-            tc.DistinctInLabels(), tc.EngineConfig(mode="basic",
-                                                   backend="torch")),
+        "message log without mesh=": lambda: eng(
+            tc.MessageLog(str(tmp_path / "l"))),
+        "run-file log": lambda: eng(
+            tc.RunFileMessageLog(str(tmp_path / "r"))),
+        "checkpointer without mesh=": lambda: eng(None).run(
+            checkpointer=tc.Checkpointer(str(tmp_path / "c"), every=1)),
+        "meshed log off the mesh": lambda: eng(
+            tc.MessageLog(str(tmp_path / "m"), mesh=mesh), None),
     }
 
 
-@pytest.mark.parametrize("what", ["recoded_compact", "message_log",
-                                  "checkpointer", "basic without a combiner"])
-def test_slice_5b_refusals(tmp_path, what):
-    with pytest.raises(NotImplementedError, match="slice 5b"):
-        _refusals(tmp_path)[what]()
+@pytest.mark.parametrize("what", ["message log without mesh=",
+                                  "run-file log",
+                                  "checkpointer without mesh=",
+                                  "meshed log off the mesh"])
+def test_files_must_know_the_rank(tmp_path, what):
+    """A log or checkpointer writes one file a shard it holds: on a mesh
+    it is made with the engine's mesh, off one without; a run-file log
+    keeps one index a superstep for every shard, so it stays off the
+    mesh."""
+    with pytest.raises(ValueError, match="mesh="):
+        _unranked_files(tmp_path)[what]()
+
+
+def test_restore_on_a_mesh_checks_the_shard_count(tmp_path):
+    """A checkpoint of 2 shards does not restore onto a mesh of 1 rank; a
+    checkpoint of 1 restores that rank's row."""
+    _, tpg, _ = _setup(2)
+    ck = tc.Checkpointer(str(tmp_path / "c"))
+    ck.save(3, torch.zeros(2, tpg.P), torch.ones(2, tpg.P, dtype=torch.bool))
+    one = ProcessMesh(0, 1, backend="gloo", device="cpu")
+    with pytest.raises(ValueError, match="holds 2 shards and the mesh has 1"):
+        tc.Checkpointer(str(tmp_path / "c"), mesh=one).restore(device="cpu")
+    mine = tc.Checkpointer(str(tmp_path / "d"), mesh=one)
+    mine.save(2, torch.ones(1, 5), torch.zeros(1, 5, dtype=torch.bool))
+    v, a, step = mine.restore(device="cpu")
+    assert step == 2 and v.shape == (1, 5) and not bool(a.any())
 
 
 def test_streamed_with_a_mesh_is_the_references_value_error(tmp_path):

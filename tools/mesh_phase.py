@@ -9,7 +9,9 @@ does, builds the kernels, partitions an RMAT graph (edge factor 16, uniform
 weights, seed 0) in 8 shards, and calls ``chip_smoke.phase_mesh``: gloo with
 8 ranks on the first card, then NCCL with one rank a GPU where there are two
 or more (else NCCL with one rank at scale 20), each against the emulated
-run of the same partition.
+run of the same partition; then the logged step, message log, checkpoints,
+recovery and combiner-less cases on RMAT scale 19, under gloo with 8 ranks
+and NCCL with one rank a GPU where there are two or more.
 """
 
 from __future__ import annotations
