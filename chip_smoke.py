@@ -47,15 +47,19 @@ Phases, each of which ends the run non-zero on a failure:
 10. the out-of-core ``streamed`` mode at the main partition's full width:
     its edge groups spilled from the card to a store on disk (in a
     ``.chip_smoke-streamed-*`` directory of the checkout, removed at the
-    end), then PageRank (1 superstep at the default chunks, 3 at
-    256-block chunks) and Hash-Min (1 superstep at the default chunks, to
-    quiescence at 256-block chunks), unpipelined and through
-    the full-duplex channel at both chunk sizes, and a semi-external
-    Hash-Min, each against a ``recoded`` run (Hash-Min exactly, PageRank
-    within 1e-5 of its largest value), with its ms and edges/s, blocks and bytes read a superstep, the
+    end), then PageRank unpipelined at the default chunks (1 superstep),
+    PageRank (3 supersteps) and Hash-Min (to quiescence) at 256-block
+    chunks, unpipelined and through the full-duplex channel, and a
+    semi-external Hash-Min, each against a ``recoded``
+    run (Hash-Min exactly, PageRank within 1e-5 of its largest value),
+    with its ms and edges/s, blocks and bytes read a superstep, the
     reader's wait, its peak device memory over what was allocated before
-    (under 1.5 GiB and a third of ``recoded``'s peak) and the planner's
-    memory model; no edge tensor of the streamed partition is on the card;
+    (under 1.5 GiB and a third of ``recoded``'s peak), its ordered float
+    folds a superstep (``run_sum`` launches) and the planner's memory
+    model; no edge tensor of the streamed partition is on the card; then
+    one fold call at each chunk size's stager batch (131,072 and 524,288
+    slots), the ordered fold on the card equal to the CPU's bit for bit,
+    timed against the same fold through ``index_add_``;
 11. the streamed paths whose host work grows fastest, on RMAT scale 19:
     Hash-Min over a compressed store and through the compressed channel,
     DistinctInLabels and SecondMinLabel through the message spill and
@@ -97,18 +101,29 @@ Phases, each of which ends the run non-zero on a failure:
     the integer programs bit for bit, the kernel backend's PageRank within
     1e-5 of its largest value; bitmaps, message counts and halt step
     exactly), each rank's bytes against the byte model from the
-    partition's shape (NCCL stages none through the host) and its launches
-    (n edge_combine and n-1 digest a superstep on the kernel backend,
-    run_sum on the torch backend's float sums), with ms a superstep past
-    the first against the emulated run's, start-up, the first GPU's memory
-    and a rank's peak allocation; then, on the small graph (scale 19), gloo
+    partition's shape (``launch/dryrun.py``; NCCL stages none through the
+    host) and its launches (n edge_combine and n-1 digest a superstep on
+    the kernel backend, run_sum on the torch backend's float sums), with
+    ms a superstep past the first against the emulated run's, start-up,
+    the first GPU's memory and a rank's peak allocation beside the dry-run
+    model's; under NCCL with two or more GPUs the ring alone
+    (``launch.mesh.time_ring``: n-1 rounds of P·8 bytes, the median of 7
+    reps between CUDA events on each rank), its rate, and the model's
+    collective term at that rate beside the measured PageRank superstep;
+    then, on the small graph (scale 19), gloo
     with 8 ranks (and NCCL with one rank a GPU where there are two or
     more): logged PageRank (6 supersteps) with a message log and a
     checkpoint every 4, the same resumed from its checkpoint, Hash-Min
     over the ring and logged, DistinctInLabels and SecondMinLabel under
     ``basic``, each bit-identical to the emulated run, the files the ranks
     wrote equal to the emulated run's, and shard 3 recovered in this
-    process from the mesh's files, held to phase 6's bars.
+    process from the mesh's files, held to phase 6's bars;
+15. the dry-run GraphD cell (``launch/dryrun.py``, host arithmetic): the
+    paper's clueweb and webuk at n = 256 and 512, ``recoded`` and the
+    C1-C3 variants, at phase 14's link rate (no collective term on a
+    one-GPU machine); the model's resident bytes equal to the main
+    partition's tensors and ``dst_order``, and its HBM term for the
+    emulated 8-shard PageRank superstep at or below phase 9's measured one.
 
 It prints the launch counts of the main path's runs, and the per-kernel JSON
 line and the device line last. It needs a CUDA device and the CUDA toolkit.
@@ -123,6 +138,7 @@ import json
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -135,8 +151,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # H100 SXM, NVIDIA's data sheet: HBM rate, and float32 outside the tensor
 # cores (the sheet gives no int32 vector rate; float32's stands in for it)
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+from repro_torch.launch.roofline import (  # noqa: E402
+    F32_FLOPS_PER_S, HBM_BYTES_PER_S, edge_combine_work,
+)
+
 SUM_RTOL, SUM_ATOL = 1e-5, 1e-6
 PAGERANK_TOL = 1e-5  # absolute, on the small graph and on the main path
 PAGERANK_REL_TOL = 1e-5  # main path: max |kernel - torch| over max |torch|
@@ -147,6 +165,7 @@ SHARDS = 8
 # phase 14 needed the room), and of the mesh's one-GPU run
 ELASTIC_SCALE = 19
 MESH_ONE_GPU_SCALE = 20
+RING_REPS = 7  # phase 14's timed reps of the NCCL ring alone
 
 
 class SmokeFailure(RuntimeError):
@@ -209,7 +228,7 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     """The least ms the card could take: the larger of bytes over the HBM
     rate and operations over the float32 rate, and which one it is."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / F32_OPS_PER_S * 1e3
+    by_ops = ops / F32_FLOPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -269,9 +288,6 @@ EC_CASES = [("div_deg", "sum", "f32"), ("add_w", "min", "f32"),
             ("add_1", "min", "f32"), ("deg", "sum", "f32"),
             ("copy", "min", "i32"), ("copy", "max", "i32")]
 DENSITIES = (0.0, 0.02, 1.0)
-# per source vertex, the state a message kind reads: values 4 B, degree 4 B,
-# active flag 1 B
-STATE_BYTES = {"div_deg": 9, "add_w": 5, "add_1": 5, "copy": 5, "deg": 5}
 
 
 def kept_sources(sp, active, dest, ids, n_keep) -> tuple[int, int]:
@@ -289,21 +305,6 @@ def kept_sources(sp, active, dest, ids, n_keep) -> tuple[int, int]:
     named.scatter_(1, s, True)
     named = named[:, :P]
     return int(named.sum()), int((named & active).sum())
-
-
-def edge_combine_work(kind: str, n: int, P: int, kept_slots: int,
-                      kept_blocks: int, msgs: int, sources: int,
-                      active_sources: int) -> tuple[float, float]:
-    """(bytes, operations) that one launch must move and do: sp of every
-    kept slot; dp (and w for add_w) of each edge whose source is active,
-    i.e. of each message; the active flag of each source a kept slot names
-    and the rest of the kind's state of each active one, once; A_s and cnt
-    written once; the kept block ids, dest and n_keep. Each message takes a
-    message op, a combine and a count."""
-    nbytes = (4 * kept_slots + (8 if kind == "add_w" else 4) * msgs
-              + sources + (STATE_BYTES[kind] - 1) * active_sources
-              + 8 * n * P + 4 * kept_blocks + 8 * n)
-    return nbytes, 3 * msgs
 
 
 def phase_kernels(pg, seed: int) -> dict:
@@ -1198,14 +1199,18 @@ def streamed_run(eng, label: str, **kw):
     check(eng.pg.device.type == "cuda", f"{label}: engine off the card")
     check(all(getattr(eng.pg, f).numel() == 0 for f in EDGE_FIELDS),
           f"{label}: an edge tensor of the streamed partition is on the card")
+    from repro_torch.kernels.run_sum import run_sum
+
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    sums = run_sum.launches
     t0 = time.perf_counter()
     out, hist = eng.run(**kw)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     steps = len(hist)
+    sums = (run_sum.launches - sums) / steps
     io = eng.io_history
     wait = sum(s.wait_seconds for s in io)
     read = sum(s.read_seconds for s in io)
@@ -1223,6 +1228,7 @@ def streamed_run(eng, label: str, **kw):
         reader_wait_s=wait, reader_read_s=read, loop_s=secs - wait,
         read_gb_per_s=nbytes / read / 1e9 if read else 0.0,
         peak_increment_gib=(torch.cuda.max_memory_allocated() - base) / 2**30,
+        ordered_sums_per_superstep=sums,
         model=model,
     )
     print(f"streamed {label}: {steps} supersteps, "
@@ -1232,7 +1238,8 @@ def streamed_run(eng, label: str, **kw):
           f"{row['blocks_per_superstep']:.1f} blocks and "
           f"{row['bytes_per_superstep']:.6g} bytes read off disk, "
           f"{row['cache_hits_per_superstep']:.1f} cache hits, "
-          f"{row['chunks_per_superstep']:.1f} chunks; reader wait "
+          f"{row['chunks_per_superstep']:.1f} chunks, {sums:.1f} ordered "
+          f"float folds (run_sum launches); reader wait "
           f"{wait:.3f} s against {secs - wait:.3f} s of the rest of the loop "
           f"(producer reads {read:.3f} s, {row['read_gb_per_s']:.3f} GB/s); "
           f"peak device memory +{row['peak_increment_gib']:.4f} GiB over "
@@ -1240,12 +1247,6 @@ def streamed_run(eng, label: str, **kw):
           f"{model}, fold stager {eng._stager.nbytes} bytes of host RAM "
           f"outside it")
     return out, hist, row
-
-
-def capped(program, supersteps: int):
-    """``program`` run for ``supersteps`` whatever its halting vote."""
-    program.num_supersteps = supersteps
-    return program
 
 
 def check_streamed(name: str, v, a, hist, ref, what: str) -> float:
@@ -1265,11 +1266,71 @@ def check_streamed(name: str, v, a, hist, ref, what: str) -> float:
     return 0.0
 
 
+def fold_cost(pg, slots: int, seed: int = 0) -> dict:
+    """One streamed fold call at the main partition's width: the first
+    ``slots`` edge slots of group (0, 1), what the fold stager hands a
+    multi-chunk group's first staged batch, PageRank with every vertex
+    active. StreamKernels.fold (the ordered sum: one stable sort, then
+    run_sum accumulating) on the card, equal bit for bit to the same fold
+    on the CPU; its device ms against the same fold through index_add_
+    (the unordered atomics it replaced) and the bound of the fold's
+    function, whatever its design: sp a slot, dp a message, each named
+    source's flag and each active one's value and degree, A and cnt read
+    and written at each distinct destination. The sort and run_sum's
+    gather are the ordered design's overhead, outside the bound."""
+    import torch
+    from repro_torch.core import PageRank
+    from repro_torch.core.engine import StreamKernels, _gen_messages
+
+    prog = PageRank(1)
+    kern = StreamKernels(prog, pg.n_shards, pg.n_vertices, pg.P)
+    sp, dp, w = (getattr(pg, f)[0, 1, :slots].contiguous()
+                 for f in ("src_pos", "dst_pos", "eweight"))
+    gen = torch.Generator(device=pg.device).manual_seed(seed)
+    values = torch.rand(pg.P, generator=gen, device=pg.device)
+    args = (values, pg.degree[0], pg.vmask[0], sp, dp, w, 1)
+
+    def fresh(dev):
+        return (torch.zeros(pg.P, device=dev),
+                torch.zeros(pg.P, dtype=torch.int32, device=dev))
+
+    A, cnt = fresh(pg.device)
+    kern.fold(A, cnt, *args)
+    Ac, cc = fresh("cpu")
+    kern.fold(Ac, cc, *(a.cpu() if torch.is_tensor(a) else a for a in args))
+    torch.cuda.synchronize()
+    check(torch.equal(A.cpu().view(torch.int32), Ac.view(torch.int32))
+          and torch.equal(cnt.cpu(), cc),
+          f"fold of {slots} slots: the card's sums differ from the CPU's")
+    idx = dp.long()
+
+    def unordered():
+        msg, aact = _gen_messages(prog, values[None], pg.degree[0][None],
+                                  sp[None], w[None], pg.vmask[0][None], 1)
+        A.index_add_(0, idx, msg[0])
+        cnt.index_add_(0, idx, aact[0].to(torch.int32))
+
+    named = sp >= 0
+    live = named & pg.vmask[0][sp.clamp(min=0).long()]
+    msgs = int(live.sum())
+    srcs = torch.unique(sp[named])
+    act_srcs = int(pg.vmask[0][srcs.long()].sum())
+    dests = int(torch.unique(dp[live]).numel())
+    bound_ms, bound_by = bound(4 * slots + 4 * msgs + int(srcs.numel())
+                               + 8 * act_srcs + 16 * dests, 3 * msgs)
+    row = dict(slots=slots, messages=msgs, destinations=dests,
+               ordered_ms=time_ms(lambda: kern.fold(A, cnt, *args)),
+               index_add_ms=time_ms(unordered), bound_ms=bound_ms,
+               bound_by=bound_by)
+    print("fold " + json.dumps(row))
+    return row
+
+
 def phase_streamed(pg, ref: dict, recoded_peak_gib: float) -> dict:
     """mode='streamed' at the main partition's full width: its edge groups
     spilled to a store in a directory of this checkout (removed after),
-    then PageRank and Hash-Min (1 superstep each), unpipelined and
-    through the full-duplex channel at the default StreamConfig, and
+    then PageRank (1 superstep), unpipelined at the default StreamConfig,
+    and
     PageRank (3) and Hash-Min through the channel at 256-block chunks; a
     semi-external Hash-Min whose hot-block cache holds some blocks, and
     both unpipelined at 256-block chunks; each against a recoded run as
@@ -1278,6 +1339,7 @@ def phase_streamed(pg, ref: dict, recoded_peak_gib: float) -> dict:
         ChannelConfig, EngineConfig, GraphDEngine, HashMin, PageRank,
         StreamConfig,
     )
+    from repro_torch.core.plan import fold_stager_slots
     from repro_torch.graph import spill_partition
 
     rows = []
@@ -1292,13 +1354,13 @@ def phase_streamed(pg, ref: dict, recoded_peak_gib: float) -> dict:
         progs = (("pagerank3", lambda: PageRank(3)), ("hashmin", HashMin))
         # at the default 8-block chunks the reader's cost a chunk (~65,700
         # chunks a dense superstep) hides everything else, the channel
-        # included: the channel runs again at 256-block chunks, as do the
+        # included: the channel runs at 256-block chunks, as do the
         # semi-external run and both programs unpipelined. There PageRank
-        # and Hash-Min run 1 superstep each (~15-20 s), and PageRank 3 at
+        # alone runs, unpipelined and 1 superstep (~15-20 s; its ordered
+        # fold is what the chunk size changes), and PageRank 3 at
         # 256-block chunks, each held to a recoded run as deep, to leave
-        # phases 12-14 room in the smoke's time
-        short = (("pagerank1", lambda: PageRank(1)),
-                 ("hashmin1", lambda: capped(HashMin(), 1)))
+        # phases 12-15 room in the smoke's time
+        short = (("pagerank1", lambda: PageRank(1)),)
         for name, prog in (*short, progs[0]):
             (vs, as_), hs = GraphDEngine(pg, prog(), EngineConfig(
                 mode="recoded", backend="torch")).run()
@@ -1311,9 +1373,6 @@ def phase_streamed(pg, ref: dict, recoded_peak_gib: float) -> dict:
         runs = [(f"{label} {name}", prog, cfg)
                 for label, cfg, programs in (
                     ("unpipelined", EngineConfig(mode="streamed"), short),
-                    ("full-duplex", EngineConfig(
-                        mode="streamed", channel=ChannelConfig(pipeline=True)),
-                     short),
                     ("full-duplex chunk_blocks=256", EngineConfig(
                         mode="streamed", stream=big,
                         channel=ChannelConfig(pipeline=True)), progs))
@@ -1348,6 +1407,27 @@ def phase_streamed(pg, ref: dict, recoded_peak_gib: float) -> dict:
               "every run; pagerank's gaps: "
               + ", ".join(f"{k} {g:.4g}" for k, g in gaps.items()
                           if "pagerank" in k))
+        # the ordered fold's cost: a call's device ms against index_add_'s
+        # at each chunk size's stager batch, times its calls a superstep
+        dflt = StreamConfig()
+        for cb in (dflt.chunk_blocks, 256):
+            slots = min(pg.E_cap, fold_stager_slots(cb, dflt.group_batch,
+                                                    pg.edge_block))
+            f = fold_cost(pg, slots)
+            for row in rows:
+                if "pagerank" not in row["run"] or (
+                        ("chunk_blocks=256" in row["run"]) != (cb == 256)):
+                    continue
+                extra = row["ordered_sums_per_superstep"] * (
+                    f["ordered_ms"] - f["index_add_ms"])
+                print(f"streamed {row['run']}: "
+                      f"{row['ordered_sums_per_superstep']:.1f} ordered "
+                      f"folds a superstep at ~{f['ordered_ms']:.4f} ms "
+                      f"against index_add_'s {f['index_add_ms']:.4f} ms a "
+                      f"{slots}-slot call: ~{extra:.3f} ms of device time "
+                      f"over the unordered fold, "
+                      f"{extra / row['ms_per_superstep']:.5f} of its "
+                      f"{row['ms_per_superstep']:.3f} ms superstep")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return dict(rows=rows, spill_s=spill_s, signature=store.signature())
@@ -2128,31 +2208,18 @@ def mesh_cases(src: int, wide: bool):
     return cases
 
 
-def mesh_bytes(case: str, pg, backend: str) -> dict:
-    """What a rank of an n-rank mesh hands its backend a superstep, from
-    the partition's shape: the ring's (n-1) rounds of a value and a count
-    a position; basic's one all_to_all of a payload and a destination an
-    edge slot; recoded_compact's of a bf16 value and an int8 flag a slot
-    and destination; the logged step's of a float32 value and an int32
-    count a slot and destination; PageRank's 4-byte aggregator, gathered;
-    five 8-byte reductions. Under gloo every byte goes to the host and
-    back, the gather bringing n partials back."""
-    n = pg.n_shards
-    if n == 1:
-        return dict(ring=0, all_to_all=0, gather=0, reduce=0, staged=0)
-    if "-basic-" in case:
-        ring, a2a = 0, n * pg.E_cap * 8
-    elif "-recoded_compact-" in case:
-        ring, a2a = 0, n * pg.P * 3
-    elif "-logged" in case:
-        ring, a2a = 0, n * pg.P * 8
-    else:
-        ring, a2a = (n - 1) * pg.P * 8, 0
-    gather = 4 if case.startswith("pagerank") else 0
-    staged = (2 * (ring + a2a) + (gather + 4 * n if gather else 0) + 2 * 40
-              if backend == "gloo" else 0)
-    return dict(ring=ring, all_to_all=a2a, gather=gather, reduce=40,
-                staged=staged)
+def case_bytes(case: str, pg, backend: str) -> dict:
+    """What a rank of an n-rank mesh hands its backend a superstep in a
+    phase-14 case (``<program>-<mode>-...`` or ``<program>-logged...``):
+    the byte model of ``repro_torch.launch.dryrun.superstep_bytes`` from
+    the partition's shape, PageRank's 4-byte aggregator gathered, every
+    byte staged through the host under gloo on the card."""
+    from repro_torch.launch.dryrun import superstep_bytes
+
+    mode = "logged" if "-logged" in case else case.split("-")[1]
+    return superstep_bytes(mode, pg.n_shards, pg.P, pg.E_cap,
+                           gather=4 if case.startswith("pagerank") else 0,
+                           staged=backend == "gloo")
 
 
 def check_mesh_case(what: str, case: str, cfg, res, v, a, hist, pg,
@@ -2161,7 +2228,7 @@ def check_mesh_case(what: str, case: str, cfg, res, v, a, hist, pg,
     card: superstep stats, halt step and bitmaps exactly; the torch
     backend's values and the integer programs' bit for bit, the kernel
     backend's PageRank by ``check_pagerank`` (edge_combine's float atomics
-    are unordered); each rank's bytes against :func:`mesh_bytes` and its
+    are unordered); each rank's bytes against :func:`case_bytes` and its
     launches (the kernel backend: n edge_combine and n-1 digest a
     superstep; the torch backend: run_sum for a float sum, neither
     kernel), added to ``launches``. Returns PageRank's gap over its largest
@@ -2181,7 +2248,7 @@ def check_mesh_case(what: str, case: str, cfg, res, v, a, hist, pg,
     else:
         check(torch.equal(res.values, v.cpu()),
               f"{what}: values differ from the emulated run")
-    want = {k: b * steps for k, b in mesh_bytes(case, pg, backend).items()}
+    want = {k: b * steps for k, b in case_bytes(case, pg, backend).items()}
     for r, rank in enumerate(res.ranks):
         check(rank["bytes"] == want, f"{what}: rank {r} handed its "
               f"backend {rank['bytes']}, the byte model says {want}")
@@ -2208,14 +2275,18 @@ def _past_ms(hist) -> float:
 
 
 def run_mesh_phase(label: str, pg, src: int, backend: str, gpus: list,
-                   wide: bool) -> dict:
+                   wide: bool, ring_reps: int = 0) -> dict:
     """Every case of :func:`mesh_cases` on one mesh of ``pg.n_shards``
     ranks, each held by :func:`check_mesh_case` against the emulated run
     of the same partition on the card. Prints ms a superstep past the
     first (the slowest rank's) against the emulated run's, start-up, the
-    first GPU's memory and a rank's peak allocation."""
+    first GPU's memory and a rank's peak allocation (a PageRank case's
+    beside the dry-run model's). With ``ring_reps``, the ring alone (``launch.mesh.time_ring``):
+    its rate, and the model's collective term at that rate beside the
+    measured PageRank superstep (the ring's share of it)."""
     import torch
     from repro_torch.core import GraphDEngine
+    from repro_torch.launch.dryrun import run_graphd_cell
     from repro_torch.launch.mesh import run_mesh_cases
 
     n = pg.n_shards
@@ -2225,12 +2296,15 @@ def run_mesh_phase(label: str, pg, src: int, backend: str, gpus: list,
         with CardMemory(gpus[0]) as mem:
             run = run_mesh_cases(pg, [(make(), cfg) for _, make, cfg in cases],
                                  backend=backend, device="cuda", gpus=gpus,
-                                 workdir=root, timeout=600)
+                                 workdir=root, timeout=600,
+                                 ring_reps=ring_reps)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     launches = {k: [0] * n for k in ("edge_combine", "digest", "run_sum")}
+    past = {}
     for (case, make, cfg), res in zip(cases, run.results):
         what = f"mesh {label} {case}"
+        past[case] = _past_ms(res.history)
         (v, a), hist = GraphDEngine(pg, make(), cfg).run()
         torch.cuda.synchronize()
         gap = check_mesh_case(what, case, cfg, res, v, a, hist, pg, backend,
@@ -2249,11 +2323,16 @@ def run_mesh_phase(label: str, pg, src: int, backend: str, gpus: list,
               f"{_past_ms(hist):.3f}; per-superstep ms of the slowest rank "
               f"{[round(h.seconds * 1e3, 2) for h in res.history]}, of the "
               f"emulated run {[round(h.seconds * 1e3, 2) for h in hist]}; "
-              f"each rank handed its backend {mesh_bytes(case, pg, backend)}"
+              f"each rank handed its backend {case_bytes(case, pg, backend)}"
               " bytes a superstep, equal to the byte model; "
               + (f"pagerank gap over its largest value {gap:.4g}, and "
                  f"{twin:.4g} between two emulated runs" if twin is not None
-                 else "equal to the emulated run bit for bit"))
+                 else "equal to the emulated run bit for bit")
+              + (f"; a rank's peak allocated "
+                 f"{max(r['peak_bytes'] for r in res.ranks)} bytes, the "
+                 "dry-run model's "
+                 f"{run_graphd_cell(mode=cfg.mode, pg=pg, backend=cfg.backend)['peak_bytes']}"
+                 if case.startswith("pagerank") else ""))
         del v, a
     start = {k: max(s[k] for s in run.startup) for k in run.startup[0]}
     peak = max((r["peak_bytes"] for res in run.results for r in res.ranks
@@ -2267,7 +2346,26 @@ def run_mesh_phase(label: str, pg, src: int, backend: str, gpus: list,
           f" s, slice load {start['load_s']:.3f} s; GPU {gpus[0]}'s memory in "
           f"use {mem.before} MiB before, peak {mem.peak} MiB during; a "
           f"rank's peak allocated {peak} bytes")
-    return dict(launches=launches, run=run)
+    rate = None
+    if run.ring:
+        ms = max(statistics.median(r["ms"]) for r in run.ring)
+        nbytes = run.ring[0]["bytes"]
+        check(all(r["bytes"] == nbytes == (n - 1) * pg.P * 8
+                  for r in run.ring),
+              f"mesh {label}: the timed ring moved {run.ring} bytes")
+        rate = nbytes / (ms / 1e3)
+        model = run_graphd_cell(pg=pg, link_bytes_per_s=rate)
+        coll_ms = model["t_collective_s"] * 1e3
+        pr = past["pagerank-recoded-kernel"]
+        print(f"mesh {label} ring alone: {n - 1} rounds of ring_shift, "
+              f"{nbytes} bytes a rank, median of {len(run.ring[0]['ms'])} "
+              f"reps {ms:.4f} ms on the slowest rank: {rate:.6g} bytes/s a "
+              f"rank; the dry-run model's collective term at that rate "
+              f"{coll_ms:.4f} ms ({model['collective_bytes_per_chip']} "
+              f"bytes), its HBM term {model['t_memory_s'] * 1e3:.4f} ms, "
+              f"against the measured PageRank superstep {pr:.3f} ms: the "
+              f"ring's share {coll_ms / pr:.4f}")
+    return dict(launches=launches, run=run, link_bytes_per_s=rate)
 
 
 #: the logged cases of phase 14 on the small graph: (label, program
@@ -2397,7 +2495,7 @@ def run_mesh_recovery(label: str, pg, backend: str, gpus: list,
                   f"for bit; {_past_ms(res.history):.3f} ms a superstep past "
                   f"the first against the emulated run's {_past_ms(hist):.3f}"
                   f"; each rank handed its backend "
-                  f"{mesh_bytes(case, pg, backend)} bytes a superstep"
+                  f"{case_bytes(case, pg, backend)} bytes a superstep"
                   + (f"; rank 0's log {r0['log_bytes']} bytes"
                      if r0["log_bytes"] is not None else "")
                   + (f"; checkpoints {max(r['ckpt_seconds'] for r in res.ranks):.3f}"
@@ -2492,7 +2590,11 @@ def phase_mesh(g, pg, src: int, seed: int, gpus: list, power: str) -> dict:
         pgn, rmap = partition_graph(g1, 1)
         srcn = int(rmap.to_new(np.array([0]))[0])
         label += f" (RMAT scale {MESH_ONE_GPU_SCALE})"
-    run_mesh_phase(label, pgn, srcn, "nccl", gpus[:n], wide=True)
+    nccl = run_mesh_phase(label, pgn, srcn, "nccl", gpus[:n], wide=True,
+                          ring_reps=RING_REPS if n >= 2 else 0)
+    if nccl["link_bytes_per_s"] is None:
+        print("mesh: no link rate was measured (the ring needs two GPUs); "
+              "the dry-run records carry no collective term")
     del pgn
     t0 = time.perf_counter()
     gs = rmat_graph(scale=ELASTIC_SCALE, edge_factor=16, seed=seed,
@@ -2517,7 +2619,78 @@ def phase_mesh(g, pg, src: int, seed: int, gpus: list, power: str) -> dict:
     launches = {k: [a + b for a, b in zip(gloo["launches"][k],
                                           small["launches"][k])]
                 for k in gloo["launches"]}
-    return dict(launches_per_rank=launches)
+    return dict(launches_per_rank=launches,
+                link_bytes_per_s=nccl["link_bytes_per_s"])
+
+
+# --------------------------------------------------------------------------
+# phase 15: the dry-run cell
+# --------------------------------------------------------------------------
+
+def dryrun_records(link_bytes_per_s) -> None:
+    """Table 1's clueweb and webuk at n = 256 and 512, ``recoded`` and the
+    reference's C1-C3 variants, each record's line (clueweb's base records
+    in full), the collective term at ``link_bytes_per_s`` where given;
+    each must fit the card's memory."""
+    from repro_torch.launch.dryrun import run_graphd_cell, summary
+
+    variants = (("", "recoded", 4096), ("C1", "recoded_compact", 4096),
+                ("C2", "recoded", 16384), ("C3", "recoded_compact", 16384))
+    for scale in ("clueweb", "webuk"):
+        for multi in (False, True):
+            for tag, mode, block in variants:
+                rec = run_graphd_cell(multi, scale, mode, block, tag,
+                                      link_bytes_per_s=link_bytes_per_s)
+                check(rec["fits"], f"dry run: {summary(rec)} does not fit")
+                if not tag and scale == "clueweb":
+                    print("dryrun " + json.dumps(rec))
+                print("dry run: " + summary(rec))
+
+
+def phase_dryrun(pg, profile: dict, link_bytes_per_s, power: str) -> None:
+    """The dry-run GraphD cell (``launch/dryrun.py``), host arithmetic:
+    Table 1's clueweb and webuk at n = 256 and 512, ``recoded`` and the
+    reference's C1-C3 variants (the compact wire, 16384-slot blocks,
+    both), the collective term at the link rate phase 14 measured (none
+    on a one-GPU machine). Then the model against this card: its resident
+    bytes equal the main partition's tensors (dst_order too, built by the
+    torch backend's runs), and its HBM term for the emulated n-shard
+    superstep (n ranks' bytes on one card) is at or below phase 9's
+    measured PageRank superstep."""
+    from repro_torch.launch.dryrun import (
+        partition_tensor_bytes, resident_bytes, run_graphd_cell,
+    )
+
+    t0 = time.perf_counter()
+    rate = (f"{link_bytes_per_s:.6g} bytes/s (phase 14's NCCL ring)"
+            if link_bytes_per_s else "none measured (one GPU)")
+    print(f"dry run: {power}; link rate {rate}")
+    dryrun_records(link_bytes_per_s)
+    n, rows = pg.n_shards, pg.n_rows
+    got = partition_tensor_bytes(pg)
+    model = resident_bytes(n, pg.P, pg.E_cap, pg.n_blocks, dst_order=True)
+    check(got["partition"] == rows * model["partition"],
+          f"dry run: the partition holds {got['partition']} bytes, the "
+          f"model says {rows} x {model['partition']}")
+    check(got["dst_order"] == rows * model["dst_order"] > 0,
+          f"dry run: dst_order holds {got['dst_order']} bytes, the model "
+          f"says {rows} x {model['dst_order']}")
+    rec = run_graphd_cell(pg=pg)
+    emulated_ms = n * rec["t_memory_s"] * 1e3
+    check(emulated_ms <= profile["wall_ms"],
+          f"dry run: the model's HBM term for {n} emulated shards, "
+          f"{emulated_ms:.4f} ms, exceeds the measured PageRank superstep "
+          f"{profile['wall_ms']:.3f} ms")
+    print(f"dry run: the main partition's {got['partition']} bytes of "
+          f"tensors and {got['dst_order']} of dst_order equal the model's "
+          f"{rows} x {model['partition']} and {rows} x {model['dst_order']};"
+          f" its HBM term for the emulated {n}-shard PageRank superstep "
+          f"({n} x {rec['bytes_per_chip']} bytes at the H100's 3.35e12 "
+          f"bytes/s) {emulated_ms:.4f} ms against phase 9's measured "
+          f"{profile['wall_ms']:.3f} ms wall ({profile['busy_ms']:.3f} ms "
+          f"of device work): {emulated_ms / profile['wall_ms']:.4f} of the "
+          f"wall, {emulated_ms / profile['busy_ms']:.4f} of the device "
+          f"work; {time.perf_counter() - t0:.2f} s")
 
 
 def main(argv=None) -> int:
@@ -2571,7 +2744,7 @@ def main(argv=None) -> int:
     # the dense path, and a late Hash-Min superstep: a small frontier
     from repro_torch.core import HashMin, PageRank
 
-    phase_profile(pg, "pagerank", PageRank(10), 2)
+    profile = phase_profile(pg, "pagerank", PageRank(10), 2)
     phase_profile(pg, "hashmin", HashMin(), 4)
     recoded_peak = max(r["peak_gib"] for r in modes["rows"]
                        if r["run"].startswith("recoded "))
@@ -2580,6 +2753,7 @@ def main(argv=None) -> int:
     procs = phase_processes(g, args.seed)
     phase_sockets(g, procs["files"])
     mesh = phase_mesh(g, pg, src, args.seed, gpus, built["power"])
+    phase_dryrun(pg, profile, mesh["link_bytes_per_s"], built["power"])
     for name, k in kernels.items():
         k["launches"] = launches[name]
         k["mesh_launches_per_rank"] = mesh["launches_per_rank"][name]

@@ -22,6 +22,8 @@ from typing import Any
 
 import torch
 
+from repro_torch.kernels.run_sum import run_sum
+
 
 @dataclass(frozen=True)
 class Combiner:
@@ -167,11 +169,19 @@ def segment_count_distinct(sorted_dst, sorted_msg, P: int) -> torch.Tensor:
 
 
 def segment_sum(sorted_dst, sorted_msg, P: int) -> torch.Tensor:
+    """Per-destination sum of the sorted runs. A float32 sum adds each
+    run left to right from 0 (``kernels/run_sum`` on the runs as they
+    stand, the padding skipped), on the CPU and on the card alike; other
+    types keep ``index_add_``, exact in any order."""
     valid = sorted_dst < P
+    idx = _flat_index(sorted_dst, valid, P)
+    if sorted_msg.dtype == torch.float32:
+        key = torch.where(valid.reshape(-1), idx, -1).view(valid.shape)
+        return run_sum(key, sorted_msg.contiguous(),
+                       sorted_dst.shape[0] * P).view(-1, P)
     out = torch.zeros(sorted_dst.shape[0] * P, dtype=sorted_msg.dtype,
                       device=sorted_msg.device)
-    out.index_add_(0, _flat_index(sorted_dst, valid, P),
-                   torch.where(valid, sorted_msg, 0).reshape(-1))
+    out.index_add_(0, idx, torch.where(valid, sorted_msg, 0).reshape(-1))
     return out.view(-1, P)
 
 

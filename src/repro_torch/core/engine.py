@@ -497,11 +497,26 @@ class StreamKernels:
         """Fold staged edge slots (``(slots,)`` each: one chunk, or
         several chunks of one group back to back) of a source row into the
         destination accumulator ``A``/``cnt`` in place (the in-memory A_s
-        combine of §5, applied to what is staged)."""
+        combine of §5, applied to what is staged).
+
+        A float32 sum adds in the stated order, on the CPU and on the card
+        alike: each slot's messages left to right as they stand, onto what
+        ``A`` holds, so a group folded over several calls is
+        ``((A[k] + v_1) + v_2) + ...`` across them, the order of
+        ``A.index_add_``. One stable sort of the active messages by
+        destination a call, then ``kernels/run_sum`` accumulating into
+        ``A``; inactive slots hold e0 = 0 and are left out (a chain from +0
+        never holds -0, so adding +0 changes no bit). Other combines keep
+        their scatter, exact in any order."""
         msg, aact = _gen_messages(self.program, values[None], degree[None],
                                   sp[None], w[None], active[None], step)
         idx = dp.long()
-        self.program.combiner.scatter(A, idx, msg[0])
+        if _ordered_sum(self.program):
+            key = torch.where(aact, idx[None], -1)
+            order = torch.sort(key, dim=-1, stable=True).indices
+            run_sum(key, msg, self.P, order, out=A)
+        else:
+            self.program.combiner.scatter(A, idx, msg[0])
         cnt.index_add_(0, idx, aact[0].to(torch.int32))
         return A, cnt
 

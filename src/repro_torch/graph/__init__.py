@@ -10,7 +10,7 @@ from repro_torch.graph.generate import (
     chain_graph, erdos_renyi_graph, rmat_graph, star_graph,
 )
 from repro_torch.graph.partition import (
-    PartitionedGraph, block_ranges, build_partition, drop_edges,
+    PartitionedGraph, abstract_partitioned_graph, block_ranges, build_partition, drop_edges,
     load_shard_slice, partition_for_plan, partition_graph,
     partition_graph_streamed, shard_slice, spill_partition,
     write_shard_slice,
@@ -20,6 +20,7 @@ from repro_torch.graph.recode import RecodeMap, recode_ids
 __all__ = [
     "Graph", "build_csr", "rmat_graph", "erdos_renyi_graph", "chain_graph",
     "star_graph", "RecodeMap", "recode_ids", "PartitionedGraph",
+    "abstract_partitioned_graph",
     "block_ranges", "build_partition", "partition_graph", "drop_edges",
     "partition_graph_streamed", "partition_for_plan", "spill_partition",
     "shard_slice", "write_shard_slice", "load_shard_slice",

@@ -92,7 +92,11 @@ class PartitionedGraph:
         order of their ``dst_pos``, the padding (``src_pos`` -1) last: the
         order in which the engine adds a group's float messages
         (``core/engine.py::_combine_scatter``). Sorted at first use, a row
-        at a time, and kept: E_cap int32 a group."""
+        at a time, and kept: E_cap int32 a group. An abstract partition
+        (on ``meta``) has no order to sort."""
+        if self.device.type == "meta":
+            raise ValueError("an abstract partition has no dst_order; the "
+                             "dry run reckons its bytes from the shape")
         out = torch.empty(self.dst_pos.shape, dtype=torch.int32,
                           device=self.device)
         for r in range(self.n_rows):
@@ -342,3 +346,43 @@ def partition_for_plan(g: Graph, plan, spill_dir: str,
         vertex_pad=plan.vertex_pad, recode=recode, device=device,
     )
     return pg, rmap, None
+
+
+def abstract_partitioned_graph(
+    n_shards: int,
+    n_vertices: int,
+    n_edges: int,
+    edge_block: int = 4096,
+    vertex_pad: int = 128,
+    skew: float = 1.5,
+) -> PartitionedGraph:
+    """A partition of shapes and dtypes alone, for the dry run: every tensor
+    lies on PyTorch's ``meta`` device (the counterpart of the reference's
+    ``jax.ShapeDtypeStruct``), so nothing is allocated.
+
+    P = ⌈V/n⌉ rounded up to ``vertex_pad``; E_cap = ``int(E/n² · skew)``
+    rounded up to ``edge_block`` (``skew`` models the largest group over
+    the mean one), each at least one pad or block, as the reference
+    reckons them (``repro/graph/partition.py::abstract_partitioned_graph``).
+    Its ``dst_order`` refuses: the dry run reckons its bytes from the
+    shape (``launch/dryrun.py``)."""
+    n = n_shards
+    P = max(_round_up((n_vertices + n - 1) // n, vertex_pad), vertex_pad)
+    mean_group = n_edges / (n * n)
+    E_cap = max(_round_up(int(mean_group * skew), edge_block), edge_block)
+    n_blocks = E_cap // edge_block
+    meta = lambda shape, dtype: torch.empty(shape, dtype=dtype,
+                                            device="meta")
+    return PartitionedGraph(
+        n_shards=n, n_vertices=n_vertices, n_edges=n_edges, P=P,
+        E_cap=E_cap, edge_block=edge_block, n_blocks=n_blocks,
+        degree=meta((n, P), torch.int32),
+        vmask=meta((n, P), torch.bool),
+        old_ids=meta((n, P), torch.int64),
+        gids=meta((n, P), torch.int64),
+        src_pos=meta((n, n, E_cap), torch.int32),
+        dst_pos=meta((n, n, E_cap), torch.int32),
+        eweight=meta((n, n, E_cap), torch.float32),
+        blk_lo=meta((n, n, n_blocks), torch.int32),
+        blk_hi=meta((n, n, n_blocks), torch.int32),
+    )

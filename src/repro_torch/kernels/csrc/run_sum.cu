@@ -8,7 +8,9 @@
 // permutation (row r = j / E, slot perm[j] of that row); keys >= 0 stand in
 // runs, one run a key, and a key of -1 is skipped. Output: out[k] =
 // ((0 + v_1) + v_2) + ... over the run of key k, left to right; the wrapper
-// zero-fills out first.
+// zero-fills out first. Accumulating, each run's chain starts from out[k]
+// instead: out[k] = ((out[k] + v_1) + v_2) + ..., and a key with no run
+// keeps its value (the order of out.index_add_ on the CPU).
 //
 // One C call enqueues up to two kernels on the caller's stream:
 //
@@ -49,13 +51,13 @@ gather_kernel(long long* __restrict__ skey, float* __restrict__ sval,
 
 __global__ void __launch_bounds__(THREADS)
 walk_kernel(float* __restrict__ out, const long long* __restrict__ key,
-            const float* __restrict__ val, long long M) {
+            const float* __restrict__ val, long long M, bool accumulate) {
   const long long j = static_cast<long long>(blockIdx.x) * THREADS +
                       threadIdx.x;
   if (j >= M) return;
   const long long k = key[j];
   if (k < 0 || (j > 0 && key[j - 1] == k)) return;  // not a run's start
-  float acc = 0.f;
+  float acc = accumulate ? out[k] : 0.f;
   for (long long i = j; i < M; i += STEP) {
     long long ks[STEP];
     float vs[STEP];
@@ -95,10 +97,11 @@ extern "C" {
 
 // perm_bits: 0 (no permutation: positions are slots), 32 or 64 (int32 or
 // int64 row-relative slots, gathered through skey/sval, M int64 and M
-// float32 of scratch). Returns a cudaError_t (0 on success).
+// float32 of scratch). accumulate: 0 (each run's sum from 0) or 1 (from
+// out[k]). Returns a cudaError_t (0 on success).
 int run_sum_f32(void* out, const void* key, const void* val, const void* perm,
                 int perm_bits, long long E, long long M, void* skey,
-                void* sval, void* stream) {
+                void* sval, int accumulate, void* stream) {
   if (M <= 0) return 0;
   if (E <= 0 || M % E != 0) return static_cast<int>(cudaErrorInvalidValue);
   auto k = static_cast<const long long*>(key);
@@ -124,7 +127,7 @@ int run_sum_f32(void* out, const void* key, const void* val, const void* perm,
   const long long blocks = (M + THREADS - 1) / THREADS;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   walk_kernel<<<static_cast<unsigned>(blocks), THREADS, 0, s>>>(
-      static_cast<float*>(out), k, v, M);
+      static_cast<float*>(out), k, v, M, accumulate != 0);
   return static_cast<int>(cudaGetLastError());
 }
 

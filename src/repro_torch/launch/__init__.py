@@ -10,7 +10,8 @@ through the file-based coordinator barriers, or, with
 (:mod:`repro_torch.launch.net`) with a coordinator process of its own.
 :func:`repro_torch.launch.mesh.run_mesh` runs the in-memory engine as a
 mesh over ``torch.distributed``, one process a shard (gloo on the CPU,
-NCCL with one GPU a rank).
+NCCL with one GPU a rank). :mod:`repro_torch.launch.dryrun` prices the
+paper's GraphD cell a GPU of such a mesh from the partition's shape alone.
 """
 
 #: the socket transport's public names, all in ``repro_torch.launch.net``

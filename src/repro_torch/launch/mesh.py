@@ -27,7 +27,9 @@ is no retry.
 :func:`run_mesh_cases` runs several (program, config) cases in one spawn
 and returns what each rank measured as well: bytes a collective handed its
 backend, kernel launches, peak device memory, and start-up (torch import,
-rendezvous, slice load, spawn to the first superstep). A case may carry a
+rendezvous, slice load, spawn to the first superstep). With ``ring_reps``
+each rank then times the ring alone (:func:`time_ring`): what the link
+moves a superstep, for a rate. A case may carry a
 :class:`CaseFiles`: a message log and checkpoints in directories every rank
 sees, made on each rank with its mesh (rank r writes shard r's files), so a
 later case can resume from them and ``core.checkpoint.recover_shard`` can
@@ -103,6 +105,9 @@ class MeshRun:
     devices: list  # the CUDA_VISIBLE_DEVICES each rank got ("" on the CPU)
     slices_s: float  # writing the slices
     seconds: float  # first spawn to the last rank's exit
+    #: per rank, where ``ring_reps`` was asked: :func:`time_ring`'s
+    #: ``ms`` (a rep each) and ``bytes`` (a rep's ring bytes); else empty
+    ring: list = field(default_factory=list)
 
 
 def _src_root() -> str:
@@ -166,14 +171,15 @@ def run_mesh(pg, program, config=None, *, world_size: int | None = None,
 
 def run_mesh_cases(pg, cases, *, backend: str | None = None, device=None,
                    gpus=None, workdir: str | None = None,
-                   timeout: float = 600.0) -> MeshRun:
+                   timeout: float = 600.0, ring_reps: int = 0) -> MeshRun:
     """Run each ``(program, config)`` of ``cases`` in turn on one mesh of
     ``pg.n_shards`` ranks (one spawn, one slice each); a case may carry a
     third item, its :class:`CaseFiles`. ``gpus`` names the
     GPUs the ranks take (default :func:`visible_gpus`): NCCL rank r gets
     ``gpus[r]``, gloo rank r ``gpus[r % len(gpus)]``. ``workdir`` (default a
     temporary directory, removed after) holds the slices, each rank's log
-    ``rank-r.log`` and its outputs."""
+    ``rank-r.log`` and its outputs. ``ring_reps`` > 0 has each rank time
+    the ring alone that many times after the cases (:func:`time_ring`)."""
     from repro_torch.device import resolve_device
     from repro_torch.graph.partition import write_shard_slice
 
@@ -210,7 +216,8 @@ def run_mesh_cases(pg, cases, *, backend: str | None = None, device=None,
             pickle.dump(list(cases), fh)
         with open(os.path.join(workdir, SPEC), "w") as fh:
             json.dump(dict(world_size=n, backend=backend, device=dev.type,
-                           port=_free_port(), timeout=float(timeout)), fh)
+                           port=_free_port(), timeout=float(timeout),
+                           ring_reps=int(ring_reps)), fh)
         t0 = time.perf_counter()
         _spawn_and_wait(workdir, devices, timeout)
         seconds = time.perf_counter() - t0
@@ -218,7 +225,9 @@ def run_mesh_cases(pg, cases, *, backend: str | None = None, device=None,
             results=[_gather(workdir, c, n) for c in range(len(cases))],
             startup=[_read_json(os.path.join(workdir, f"startup-{r}.json"))
                      for r in range(n)],
-            devices=devices, slices_s=slices_s, seconds=seconds)
+            devices=devices, slices_s=slices_s, seconds=seconds,
+            ring=[_read_json(os.path.join(workdir, f"ring-{r}.json"))
+                  for r in range(n)] if ring_reps else [])
     finally:
         if own:
             shutil.rmtree(workdir, ignore_errors=True)
@@ -312,6 +321,46 @@ def _gather(workdir: str, case: int, n: int) -> MeshResult:
 # --------------------------------------------------------------------------
 # the rank process
 # --------------------------------------------------------------------------
+
+def time_ring(mesh, P: int, device, reps: int) -> dict:
+    """The ring alone, as ``core.engine._ring_exchange`` drives it and
+    without its contributions and digests: n-1 rounds of
+    ``mesh.ring_shift`` of a float32 value and an int32 count a position.
+    Each rep starts behind a barrier, so every rank's clock starts once
+    all have joined; it is timed between CUDA events on the card (by the
+    host clock around the blocking gloo calls on the CPU), after one
+    warm-up rep. Returns ``ms`` (each rep) and ``bytes`` (what one rep
+    handed the backend, counted by the mesh: (n-1)·P·8)."""
+    import torch
+
+    A = torch.zeros((1, P), dtype=torch.float32, device=device)
+    C = torch.zeros((1, P), dtype=torch.int32, device=device)
+    cuda = torch.device(device).type == "cuda"
+
+    def ring():
+        a, c = A, C
+        for _ in range(mesh.world_size - 1):
+            a, c = mesh.ring_shift(a), mesh.ring_shift(c)
+
+    ring()
+    ms = []
+    for _ in range(reps):
+        mesh.barrier()
+        mesh.reset()
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            ring()
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            ring()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return dict(ms=ms, bytes=mesh.bytes["ring"])
+
 
 def rank_main(workdir: str, rank: int, spawned: float) -> int:
     print(f"rank {rank} pid {os.getpid()}", flush=True)
@@ -407,6 +456,10 @@ def rank_main(workdir: str, rank: int, spawned: float) -> int:
                               else None))
             with open(_out(workdir, c, rank, "json"), "w") as fh:
                 json.dump(report, fh)
+        if spec.get("ring_reps"):
+            with open(os.path.join(workdir, f"ring-{rank}.json"), "w") as fh:
+                json.dump(time_ring(mesh, pg.P, device,
+                                    int(spec["ring_reps"])), fh)
         with open(os.path.join(workdir, f"startup-{rank}.json"), "w") as fh:
             json.dump(dict(import_s=import_s, rendezvous_s=rendezvous_s,
                            load_s=load_s,

@@ -3,7 +3,8 @@ engine's kernel backend against its torch backend on the card, the other
 in-memory modes and the recovery layer on the card against the CPU, the
 flat skip() prefix at a size where n*P passes 2^24, the multi-process
 launch on the card over both transports, the torch backend's ordered float
-sums (``kernels/run_sum``) bit for bit against the CPU, and the mesh.
+sums (``kernels/run_sum``, and its accumulating form under the streamed
+fold and ``segment_sum``) bit for bit against the CPU, and the mesh.
 
 These tests need a CUDA device and skip without one. They import neither
 jax nor the JAX package, so they run on the GPU machine as they are:
@@ -21,8 +22,10 @@ from repro_torch.core import (
     BFS, SSSP, Checkpointer, DistinctInLabels, EngineConfig, GraphDEngine,
     HashMin, LabelSpread, MessageLog, PageRank, SecondMinLabel, recover_shard,
 )
+from repro_torch.core import segment_sum
 from repro_torch.core.engine import (
-    PRESORTED, _active_prefix, _combine_scatter, _combine_sort,
+    PRESORTED, StreamKernels, _active_prefix, _combine_scatter,
+    _combine_sort,
 )
 from repro_torch.graph import Graph, partition_graph, rmat_graph
 from repro_torch.kernels import ops
@@ -82,6 +85,101 @@ def test_run_sum_kernel_equals_the_cpu(cuda, perm_dtype, rows, E, n_out,
     torch.cuda.synchronize()
     assert run_sum.launches == before + 1
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("perm_dtype", [None, torch.int32])
+@pytest.mark.parametrize("rows,E,n_out,hub_share", [
+    (1, 300, 7, 0.0), (2, 200_000, 50_000, 0.5), (8, 70_000, 3_000, 0.2)])
+def test_run_sum_accumulating_kernel_equals_the_cpu(cuda, perm_dtype, rows,
+                                                    E, n_out, hub_share):
+    """The accumulating form (each run's chain from out[k]) on the card
+    against its plain version on the CPU, bit for bit; keys with no run
+    keep their value."""
+    key, val, perm = _runs(rows + 7, rows, E, n_out, hub_share, 0.1)
+    if perm_dtype is None:
+        key, val, perm = key.gather(1, perm), val.gather(1, perm), None
+    else:
+        perm = perm.to(perm_dtype)
+    rng = np.random.default_rng(rows)
+    start = torch.from_numpy((rng.standard_normal(rows * n_out) * 10.0 **
+                              rng.integers(-4, 5, rows * n_out)
+                              ).astype(np.float32))
+    want = run_sum_plain(key, val, rows * n_out, perm, out=start.clone())
+    before = run_sum.launches
+    out = start.to(cuda)
+    got = run_sum(key.to(cuda), val.to(cuda), rows * n_out,
+                  None if perm is None else perm.to(cuda), out=out)
+    torch.cuda.synchronize()
+    assert got is out and run_sum.launches == before + 1
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def test_streamed_fold_and_segment_sum_on_card_equal_cpu(cuda):
+    """StreamKernels.fold of one group over three staged calls into one
+    accumulator, with a hub destination of ~45,000 messages, and
+    segment_sum over sorted runs: the card's bits are the CPU's, twice."""
+    rng = np.random.default_rng(21)
+    P, slots = 4_000, 30_000
+    prog = PageRank(1)
+    kern = StreamKernels(prog, 1, P, P)
+    values = (rng.standard_normal(P)
+              * 10.0 ** rng.integers(-4, 5, P)).astype(np.float32)
+    degree = rng.integers(1, 9, P).astype(np.int32)
+    active = rng.random(P) < 0.8
+    chunks = []
+    for _ in range(3):
+        dp = rng.integers(0, P, slots).astype(np.int32)
+        dp[rng.random(slots) < 0.5] = 7
+        chunks.append((rng.integers(-1, P, slots).astype(np.int32), dp,
+                       rng.random(slots).astype(np.float32)))
+    dst = np.sort(np.where(rng.random((3, slots)) < 0.1, P, np.where(
+        rng.random((3, slots)) < 0.4, 5, rng.integers(0, P, (3, slots)))),
+        axis=-1).astype(np.int32)
+    msg = (rng.standard_normal((3, slots))
+           * 10.0 ** rng.integers(-4, 5, (3, slots))).astype(np.float32)
+
+    def run(dev):
+        t = lambda x: torch.from_numpy(x).to(dev)
+        A = torch.zeros(P, device=dev)
+        cnt = torch.zeros(P, dtype=torch.int32, device=dev)
+        for sp, dp, w in chunks:
+            kern.fold(A, cnt, t(values), t(degree), t(active), t(sp), t(dp),
+                      t(w), 1)
+        return A.cpu(), cnt.cpu(), segment_sum(t(dst), t(msg), P).cpu()
+
+    before = run_sum.launches
+    cpu, card, again = run("cpu"), run(cuda), run(cuda)
+    assert run_sum.launches == before + 8  # 3 folds and a segment_sum, twice
+    for a, b, c in zip(cpu, card, again):
+        assert torch.equal(b.view(torch.int32), a.view(torch.int32))
+        assert torch.equal(c.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("variant", ["streamed", "full-duplex",
+                                     "chunk-256"])
+def test_streamed_pagerank_on_card_is_reproducible(cuda, graph, tmp_path,
+                                                   variant):
+    """Two streamed PageRank runs on the card are identical, bit for bit:
+    the fold adds each destination's messages in the stated order
+    (run_sum launched), multi-chunk groups folded over several calls."""
+    from repro_torch.core import ChannelConfig, StreamConfig
+    from repro_torch.graph import spill_partition
+
+    pg, _ = graph
+    pgs, store = spill_partition(pg.to(cuda), str(tmp_path / "s"))
+    kw = STREAMED_CASES[variant]
+    cfg = EngineConfig(mode="streamed",
+                       stream=StreamConfig(**kw.get("stream", {})),
+                       channel=ChannelConfig(**kw.get("channel", {})))
+    before = run_sum.launches
+    runs = [GraphDEngine(pgs, PageRank(6), cfg, device=cuda,
+                         stream_store=store).run() for _ in range(2)]
+    (v1, a1), h1 = runs[0]
+    (v2, a2), h2 = runs[1]
+    assert v1.device.type == "cuda"
+    assert torch.equal(v1, v2) and torch.equal(a1, a2)
+    assert [h.agg for h in h1] == [h.agg for h in h2]
+    assert run_sum.launches > before
 
 
 @pytest.mark.parametrize("caller", ["dense", "per-call", "basic_sc",

@@ -32,6 +32,7 @@ from repro_torch.core.collectives import ProcessMesh
 from repro_torch.graph.partition import (
     PartitionedGraph, load_shard_slice, shard_slice, write_shard_slice,
 )
+from repro_torch.launch.dryrun import superstep_bytes
 from repro_torch.launch.mesh import (
     CaseFiles, MeshFailed, run_mesh, run_mesh_cases,
 )
@@ -44,6 +45,7 @@ WORLD = (2, 4, 8)
 SUPERSTEPS = 5
 TIMEOUT = 120.0  # seconds a mesh may take before the run fails
 SPARSE = dict(adapt_threshold=0.6, sparse_cap_frac=0.6)
+RING_REPS = 2  # the ring timed alone after the cases (launch.mesh.time_ring)
 
 #: case -> (program factory of the source vertex, EngineConfig kwargs)
 CASES = {
@@ -177,7 +179,7 @@ def meshes(tmp_path_factory):
             root = str(tmp_path_factory.mktemp(f"mesh{n}"))
             runs[n] = (tpg, src, run_mesh_cases(
                 tpg, _cases(src) + _logged_cases(root), device="cpu",
-                timeout=TIMEOUT), root)
+                timeout=TIMEOUT, ring_reps=RING_REPS), root)
         return runs[n]
     return get
 
@@ -224,17 +226,6 @@ def test_mesh_equals_emulated(meshes, n, case):
                for r in res.ranks)  # the CPU runs the plain versions
 
 
-def _a2a_model(case, tpg, n):
-    """(ring, all_to_all) bytes a rank hands its backend a superstep."""
-    if "-basic-" in case:  # a payload and a destination an edge slot
-        return 0, n * tpg.E_cap * 8
-    if "-recoded_compact-" in case:  # a bf16 value and an int8 flag a slot
-        return 0, n * tpg.P * 3
-    if "-logged" in case:  # a float32 value and an int32 count a slot
-        return 0, n * tpg.P * 8
-    return (n - 1) * tpg.P * 8, 0  # the ring: a value and a count
-
-
 @pytest.mark.parametrize("n", WORLD)
 def test_mesh_bytes_match_the_model(meshes, n):
     """What each rank hands the backend a superstep: the ring (n-1)·P·8
@@ -246,11 +237,23 @@ def test_mesh_bytes_match_the_model(meshes, n):
     tpg, _, run, _ = meshes(n)
     for case, res in zip(list(CASES) + list(LOGGED), run.results):
         steps = len(res.history)
-        ring, a2a = _a2a_model(case, tpg, n)
-        gather = 4 if case.startswith("pagerank") else 0
-        want = dict(ring=ring * steps, all_to_all=a2a * steps,
-                    gather=gather * steps, reduce=40 * steps, staged=0)
+        mode = "logged" if "-logged" in case else case.split("-")[1]
+        model = superstep_bytes(mode, n, tpg.P, tpg.E_cap,
+                                gather=4 if case.startswith("pagerank") else 0)
+        want = {k: b * steps for k, b in model.items()}
         assert all(r["bytes"] == want for r in res.ranks), (case, want)
+
+
+@pytest.mark.parametrize("n", WORLD)
+def test_ring_timing_moves_the_models_ring_bytes(meshes, n):
+    """launch.mesh.time_ring on every rank: RING_REPS timed reps, each
+    handing the backend the byte model's ring bytes, (n-1)·P·8."""
+    tpg, _, run, _ = meshes(n)
+    want = superstep_bytes("recoded", n, tpg.P, tpg.E_cap)["ring"]
+    assert len(run.ring) == n
+    for rank in run.ring:
+        assert rank["bytes"] == want == (n - 1) * tpg.P * 8
+        assert len(rank["ms"]) == RING_REPS and min(rank["ms"]) > 0
 
 
 @pytest.mark.parametrize("n", WORLD)

@@ -5,7 +5,9 @@ left to right as they stand in the flat message array, through
 ``np.add.at``. Every caller's input shape is held to ``np.add.at`` bit for
 bit: the dense groups with their precomputed order, the sparse and
 recovery calls that sort per call, ``basic_sc``'s sorted rows, ``basic``'s
-receiver partials and the streamed ``fold_batch`` lanes."""
+receiver partials, the streamed ``fold_batch`` lanes, the streamed
+``fold`` of a group over several staged calls (through ``run_sum``'s
+accumulating form) and ``segment_sum``'s sorted runs."""
 
 import numpy as np
 import pytest
@@ -13,7 +15,7 @@ import torch
 from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 
-from repro_torch.core import HashMin, PageRank
+from repro_torch.core import HashMin, PageRank, segment_sum
 from repro_torch.core.engine import (
     PRESORTED, StreamKernels, _combine_scatter, _combine_sort,
     _contrib_dense, _gen_messages,
@@ -199,6 +201,94 @@ def test_fold_batch_lanes_equal_np_add_at(graph):
         np.testing.assert_array_equal(cnt[g].numpy(), cnt_w[0])
 
 
+@SETTINGS
+@given(calls=st.integers(1, 4), slots=st.integers(1, 300),
+       P=st.integers(1, 30), hub_share=st.sampled_from([0.0, 0.5]),
+       active_share=st.sampled_from([0.0, 0.5, 1.0]),
+       seed=st.integers(0, 2**31 - 1))
+def test_fold_over_staged_calls_equals_index_add(calls, slots, P, hub_share,
+                                                 active_share, seed):
+    """The streamed fold of one group a staged batch at a time into one
+    accumulator (``fold_groups``' ``fold_staged``): after each call, A's
+    bits are those of ``A.index_add_`` of that call's messages (the fold
+    before the ordered route), and of np.add.at over every call's slots
+    back to back; the counts too."""
+    rng = np.random.default_rng(seed)
+    prog = PageRank(1)
+    kern = StreamKernels(prog, 1, P, P)
+    values = torch.from_numpy((rng.standard_normal(P) * 10.0 ** rng.integers(
+        -4, 5, P)).astype(np.float32))
+    degree = torch.from_numpy(rng.integers(1, 9, P).astype(np.int32))
+    active = torch.from_numpy(rng.random(P) < active_share)
+    A, cnt = torch.zeros(P), torch.zeros(P, dtype=torch.int32)
+    A_old, seen = torch.zeros(P), []
+    for _ in range(calls):
+        sp = torch.from_numpy(rng.integers(-1, P, slots).astype(np.int32))
+        dp = torch.from_numpy(rng.integers(0, P, slots).astype(np.int32))
+        dp[torch.from_numpy(rng.random(slots) < hub_share)] = 0
+        w = torch.ones(slots)
+        msg, aact = _gen_messages(prog, values[None], degree[None], sp[None],
+                                  w[None], active[None], 1)
+        A_old.index_add_(0, dp.long(), msg[0])
+        out = kern.fold(A, cnt, values, degree, active, sp, dp, w, 1)
+        assert out[0] is A and out[1] is cnt  # in place
+        np.testing.assert_array_equal(_bits(A), _bits(A_old))
+        seen.append((dp.numpy(), msg[0].numpy(), aact[0].numpy()))
+    dp, msg, aact = (np.concatenate(x)[None] for x in zip(*seen))
+    A_w, cnt_w = _want(P, dp, msg, aact)
+    np.testing.assert_array_equal(_bits(A), _bits(A_w[0]))
+    np.testing.assert_array_equal(cnt.numpy(), cnt_w[0])
+
+
+def test_fold_min_keeps_its_scatter(graph):
+    """Hash-Min's fold is scatter_reduce_'s amin onto what A holds."""
+    pg = graph
+    kern = StreamKernels(HashMin(), pg.n_shards, pg.n_vertices, pg.P)
+    rng = np.random.default_rng(2)
+    values = torch.from_numpy(rng.integers(0, 1000, pg.P).astype(np.int32))
+    sp = torch.from_numpy(rng.integers(-1, pg.P, 500).astype(np.int32))
+    dp = torch.from_numpy(rng.integers(0, pg.P, 500).astype(np.int32))
+    A = torch.full((pg.P,), 500, dtype=torch.int32)
+    want = A.clone()
+    msg, _ = _gen_messages(HashMin(), values[None], pg.degree[0][None],
+                           sp[None], torch.ones(1, 500), pg.vmask[0][None], 1)
+    want.scatter_reduce_(0, dp.long(), msg[0], "amin")
+    kern.fold(A, torch.zeros(pg.P, dtype=torch.int32), values, pg.degree[0],
+              pg.vmask[0], sp, dp, torch.ones(500), 1)
+    assert torch.equal(A, want)
+
+
+@SETTINGS
+@given(rows=st.integers(1, 4), M=st.integers(1, 300), P=st.integers(1, 30),
+       pad_share=st.sampled_from([0.0, 0.4]), seed=st.integers(0, 2**31 - 1))
+def test_segment_sum_equals_np_add_at(rows, M, P, pad_share, seed):
+    """segment_sum over destination-sorted rows (padding dst == P at the
+    tail): each run added left to right, the bits of np.add.at and of the
+    index_add_ it replaced; an int32 sum stays exact."""
+    rng = np.random.default_rng(seed)
+    dst = np.sort(np.where(rng.random((rows, M)) < pad_share, P,
+                           rng.integers(0, P, (rows, M))), axis=-1)
+    msg = (rng.standard_normal((rows, M))
+           * 10.0 ** rng.integers(-4, 5, (rows, M))).astype(np.float32)
+    got = segment_sum(torch.from_numpy(dst.astype(np.int32)),
+                      torch.from_numpy(msg), P)
+    valid = dst < P
+    idx = (dst + np.arange(rows)[:, None] * P)[valid]
+    np.testing.assert_array_equal(
+        _bits(got.reshape(-1)), _bits(_add_at(rows * P, idx, msg[valid])))
+    old = torch.zeros(rows * P).index_add_(
+        0, torch.from_numpy(np.where(valid, dst, 0)
+                            + np.arange(rows)[:, None] * P).reshape(-1).long(),
+        torch.from_numpy(np.where(valid, msg, 0)).reshape(-1))
+    np.testing.assert_array_equal(_bits(got.reshape(-1)), _bits(old))
+    ints = rng.integers(-1000, 1000, (rows, M)).astype(np.int32)
+    got_i = segment_sum(torch.from_numpy(dst.astype(np.int32)),
+                        torch.from_numpy(ints), P)
+    want_i = np.zeros(rows * P, np.int64)
+    np.add.at(want_i, idx, ints[valid])
+    np.testing.assert_array_equal(got_i.reshape(-1).numpy(), want_i)
+
+
 def test_min_and_integer_combines_keep_their_scatter(graph):
     """Exact in any order, MIN/MAX and integer sums are not reordered:
     Hash-Min's combine is scatter_reduce_'s amin."""
@@ -250,6 +340,45 @@ def test_run_sum_plain_equals_np_add_at(perm_dtype, rows, E, n_out,
     np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
+@pytest.mark.parametrize("perm_dtype", [None, torch.int32, torch.int64])
+@SETTINGS
+@given(rows=st.integers(1, 3), E=st.integers(1, 600), n_out=st.integers(1, 50),
+       skip_share=st.sampled_from([0.0, 0.3]), seed=st.integers(0, 2**31 - 1))
+def test_run_sum_accumulating_equals_index_add(perm_dtype, rows, E, n_out,
+                                               skip_share, seed):
+    """Given ``out``, each run's chain starts from out[k]: the bits of
+    ``out.index_add_`` of the values in position order (the skipped keys
+    dropped); keys with no run keep their value; ``out`` is updated in
+    place and returned."""
+    rng = np.random.default_rng(seed)
+    key = rng.integers(0, n_out, (rows, E))
+    key[rng.random((rows, E)) < skip_share] = -1
+    val = (rng.standard_normal((rows, E))
+           * 10.0 ** rng.integers(-4, 5, (rows, E))).astype(np.float32)
+    perm = np.argsort(key, axis=-1, kind="stable")
+    key = np.where(key >= 0, key + np.arange(rows)[:, None] * n_out, -1)
+    start = (rng.standard_normal(rows * n_out)
+             * 10.0 ** rng.integers(-4, 5, rows * n_out)).astype(np.float32)
+    order = np.take_along_axis(key, perm, -1).ravel()
+    vals = np.take_along_axis(val, perm, -1).ravel()
+    want = torch.from_numpy(start.copy()).index_add_(
+        0, torch.from_numpy(order[order >= 0]),
+        torch.from_numpy(vals[order >= 0]))
+    out = torch.from_numpy(start.copy())
+    if perm_dtype is None:
+        got = run_sum(torch.from_numpy(np.take_along_axis(key, perm, -1)),
+                      torch.from_numpy(np.take_along_axis(val, perm, -1)),
+                      rows * n_out, out=out)
+    else:
+        got = run_sum(torch.from_numpy(key), torch.from_numpy(val),
+                      rows * n_out, torch.from_numpy(perm).to(perm_dtype),
+                      out=out)
+    assert got is out
+    np.testing.assert_array_equal(_bits(out), _bits(want))
+    untouched = np.setdiff1d(np.arange(rows * n_out), order)
+    np.testing.assert_array_equal(_bits(out)[untouched], _bits(start)[untouched])
+
+
 def test_run_sum_checks_its_inputs():
     key = torch.zeros(2, 3, dtype=torch.int64)
     val = torch.zeros(2, 3)
@@ -261,5 +390,9 @@ def test_run_sum_checks_its_inputs():
         run_sum(key.reshape(-1), val.reshape(-1), 4)
     with pytest.raises(ValueError, match="perm"):
         run_sum(key, val, 4, torch.zeros(2, 2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="out"):
+        run_sum(key, val, 4, out=torch.zeros(3))
+    with pytest.raises(ValueError, match="out"):
+        run_sum(key, val, 4, out=torch.zeros(4, dtype=torch.float64))
     assert torch.equal(run_sum_plain(key, val, 0), torch.zeros(0))
     assert run_sum.launches == 0  # the CPU runs the plain version

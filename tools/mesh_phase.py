@@ -11,7 +11,9 @@ weights, seed 0) in 8 shards, and calls ``chip_smoke.phase_mesh``: gloo with
 or more (else NCCL with one rank at scale 20), each against the emulated
 run of the same partition; then the logged step, message log, checkpoints,
 recovery and combiner-less cases on RMAT scale 19, under gloo with 8 ranks
-and NCCL with one rank a GPU where there are two or more.
+and NCCL with one rank a GPU where there are two or more. Under NCCL with
+two or more GPUs it times the ring alone (its rate, and the ring's share of
+a PageRank superstep), then prints the dry-run records at that rate.
 """
 
 from __future__ import annotations
@@ -56,6 +58,9 @@ def main(argv=None) -> int:
     out = cs.phase_mesh(g, pg, src, 0, gpus, built["power"])
     print(f"phase 14 {time.perf_counter() - t0:.1f} s; launches a rank "
           f"{out['launches_per_rank']}")
+    # the dry-run records at the ring's measured rate (phase 15's first half)
+    print(f"dry run: {built['power']}; link rate {out['link_bytes_per_s']}")
+    cs.dryrun_records(out["link_bytes_per_s"])
     return 0
 
 

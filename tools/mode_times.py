@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
-"""ms a PageRank superstep of each torch-backend in-memory mode, for the
-port in a given source tree (card only).
+"""ms a PageRank superstep of each torch-backend in-memory mode, or of the
+streamed mode, for the port in a given source tree (card only).
 
     python3 tools/mode_times.py                      # this checkout's src/
     python3 tools/mode_times.py --src OTHER/src      # another tree's
+    python3 tools/mode_times.py --streamed --graph-cache DIR
 
 Builds that tree's kernels, partitions RMAT (edge factor 16, uniform
 weights, seed 0) in 8 shards, and for ``recoded``, ``basic``, ``basic_sc``
 and ``recoded_compact`` on the torch backend times superstep 1 from the
 initial state: host clock around one ``step`` ending in a sync, the median
-of ``--reps`` after one warm-up. Two trees are compared on one card by
-running them in turns in one call (a, b, b, a). Prints the card's name and
-power limit, then one JSON line.
+of ``--reps`` after one warm-up. With ``--streamed`` it spills the
+partition to a store in a ``.mode_times-*`` directory of the checkout
+(removed after) and runs unpipelined streamed PageRank (3 supersteps) at
+the default 8-block chunks and at 256-block chunks, each superstep
+timed by the engine (host clock ending in a sync); ``--graph-cache`` keeps
+the generated graph in a directory, so that a second tree's run loads it.
+Two trees are compared on one card by running them in turns in one call
+(a, b, b, a). Prints the card's name and power limit, then one JSON line.
 """
 
 from __future__ import annotations
@@ -19,8 +25,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -32,6 +40,8 @@ def main(argv=None) -> int:
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--scale", type=int, default=24)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--streamed", action="store_true")
+    ap.add_argument("--graph-cache", default=None)
     args = ap.parse_args(argv)
     src = os.path.abspath(args.src)
     sys.path.insert(0, src)
@@ -42,7 +52,7 @@ def main(argv=None) -> int:
         print("mode_times: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.core import EngineConfig, GraphDEngine, PageRank
-    from repro_torch.graph import partition_graph, rmat_graph
+    from repro_torch.graph import partition_graph
     from repro_torch.kernels import build
 
     card = subprocess.run(
@@ -52,13 +62,16 @@ def main(argv=None) -> int:
     print(card)
     build.build_all()
     t0 = time.perf_counter()
-    g = rmat_graph(scale=args.scale, edge_factor=16, seed=0,
-                   weights="uniform")
+    g = cached_graph(args.graph_cache, args.scale)
     pg, _ = partition_graph(g, 8)
     del g
     torch.cuda.synchronize()
     print(f"graph {time.perf_counter() - t0:.1f} s {pg.shape_summary}")
     out = dict(src=src, card=card, scale=args.scale)
+    if args.streamed:
+        out.update(streamed_times(pg))
+        print(json.dumps(out))
+        return 0
     for mode in MODES:
         eng = GraphDEngine(pg, PageRank(5), EngineConfig(mode=mode,
                                                          backend="torch"))
@@ -76,6 +89,51 @@ def main(argv=None) -> int:
               f"(runs {[round(t, 3) for t in times[1:]]})")
     print(json.dumps(out))
     return 0
+
+
+def cached_graph(cache, scale: int):
+    """RMAT (edge factor 16, uniform weights, seed 0) at ``scale``, kept in
+    ``cache`` (a directory) after its first generation."""
+    import numpy as np
+    from repro_torch.graph import Graph, rmat_graph
+
+    path = cache and os.path.join(cache, f"rmat{scale}.npz")
+    if path and os.path.exists(path):
+        with np.load(path) as z:
+            return Graph(z["src"], z["dst"], z["weight"],
+                         vertex_ids=z["vertex_ids"])
+    g = rmat_graph(scale=scale, edge_factor=16, seed=0, weights="uniform")
+    if path:
+        os.makedirs(cache, exist_ok=True)
+        np.savez(path, src=g.src, dst=g.dst, weight=g.weight,
+                 vertex_ids=g.vertex_ids)
+    return g
+
+
+def streamed_times(pg, supersteps: int = 3) -> dict:
+    """Unpipelined streamed PageRank at the default chunks and at 256-block
+    chunks: each superstep's ms."""
+    from repro_torch.core import (
+        EngineConfig, GraphDEngine, PageRank, StreamConfig,
+    )
+    from repro_torch.graph import spill_partition
+
+    root = tempfile.mkdtemp(prefix=".mode_times-", dir=ROOT)
+    out = {}
+    try:
+        pgs, store = spill_partition(pg, os.path.join(root, "edges"))
+        for cb in (StreamConfig().chunk_blocks, 256):
+            eng = GraphDEngine(pgs, PageRank(supersteps), EngineConfig(
+                mode="streamed", stream=StreamConfig(chunk_blocks=cb)),
+                stream_store=store)
+            _, hist = eng.run()
+            ms = [h.seconds * 1e3 for h in hist]
+            out[f"streamed chunk_blocks={cb}"] = dict(ms=ms)
+            print(f"streamed chunk_blocks={cb}: ms a superstep "
+                  f"{[round(t, 3) for t in ms]}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
 
 
 if __name__ == "__main__":
