@@ -15,7 +15,9 @@ Phases, each of which ends the run non-zero on a failure:
    the torch backend's ordered float sum: equal to its plain version on
    the CPU bit for bit, and within rtol 1e-5 of it on the card, where it
    is ``index_add_``'s atomics), with times and the least time the card
-   could take for the same work;
+   could take for the same work (run_sum's: its bytes, or its longest
+   run's chain of adds), and beside run_sum ``index_add_`` unordered and
+   under deterministic algorithms, whose bits are held to the CPU's;
 3. a small graph run through the port on the card, against a numpy PageRank
    oracle, a numpy BFS, numpy oracles of the two combiner-less programs
    (``basic`` mode) and the port's plain backend on the CPU;
@@ -454,26 +456,47 @@ def dense_round(pg, seed: int, round_: int = 0):
     return msg, dp, aact, pg.dst_order[ar, dest]
 
 
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0])
+
+
 def phase_run_sum(pg, seed: int) -> dict:
     """run_sum, the torch backend's ordered float sum, on one dense ring
     round of PageRank on ``pg`` (every slot of every group, in the
-    partition's destination order): on the card against its plain version
+    partition's marked destination order, row-local keys, as
+    ``_combine_scatter`` calls it): on the card against its plain version
     on the CPU, bit for bit, and against its plain version on the card
     (``index_add_``'s atomics: rtol 1e-5 / atol 1e-6), with times, the
-    longest run (a hub's chain of dependent adds) and the bound."""
+    longest run (a hub's chain of dependent adds) and the bound: the larger
+    of its bytes over HBM's rate (a value and the order's entry a position,
+    a key a run, as the marked call reads them, and the sums written) and
+    the longest run's chain of adds (4 cycles each at the card's highest SM
+    clock). ``flat_bytes_ms`` is the bytes of the same sums over flat int64
+    keys read a position (16 B a position, 4 B a slot), for comparison with
+    that form. Beside it, ``index_add_`` of the same sums, unordered and
+    under ``torch.use_deterministic_algorithms`` (whose bits are checked
+    against the CPU's)."""
     import torch
     from repro_torch.kernels.run_sum import run_sum, run_sum_plain
 
     msg, dp, _, order = dense_round(pg, seed)
     n, P = pg.n_shards, pg.P
-    key = torch.where(dp >= 0, dp.long() + torch.arange(
-        n, device=pg.device)[:, None] * P, -1)
     n_out = n * P
-    got = run_sum(key, msg, n_out, order)
-    card_plain = run_sum_plain(key, msg, n_out, order)
+
+    def call():
+        return run_sum(dp, msg, n_out, order, stride=P, marked=True)
+
+    got = call()
+    card_plain = run_sum_plain(dp, msg, n_out, order, stride=P, marked=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    cpu = run_sum_plain(key.cpu(), msg.cpu(), n_out, order.cpu())
+    cpu = run_sum_plain(dp.cpu(), msg.cpu(), n_out, order.cpu(), stride=P,
+                        marked=True)
     cpu_s = time.perf_counter() - t0
     check(torch.equal(got.cpu().view(torch.int32), cpu.view(torch.int32)),
           "run_sum: the card's sums differ from the CPU's in their bits")
@@ -481,7 +504,8 @@ def phase_run_sum(pg, seed: int) -> dict:
           f"run_sum: differs from its plain version on the card beyond rtol "
           f"{SUM_RTOL}")
     err = max_abs_err(got, card_plain)
-    flat = key.reshape(-1)
+    flat = torch.where(dp >= 0, dp.long() + torch.arange(
+        n, device=pg.device)[:, None] * P, -1).reshape(-1)
     M = flat.numel()
     live = flat >= 0
     longest = int(torch.bincount(flat[live], minlength=n_out).max())
@@ -492,23 +516,45 @@ def phase_run_sum(pg, seed: int) -> dict:
         out.zero_()
         out.index_add_(0, lib_key, lib_msg)
 
-    # a key (8 B), a value (4 B) and the order (4 B) read a position, the
-    # sums (4 B) written a slot; an add a position
-    bound_ms, bound_by = bound(16 * M + 4 * n_out, M)
-    row = dict(positions=M, slots=n_out, longest_run=longest,
-               max_abs_err=err,
-               ms=time_ms(lambda: run_sum(key, msg, n_out, order)),
-               launch_ms=host_launch_ms(lambda: run_sum(key, msg, n_out,
-                                                        order)),
-               plain_ms=time_ms(lambda: run_sum_plain(key, msg, n_out,
-                                                      order)),
-               library_ms=time_ms(library), bound_ms=bound_ms,
-               bound_by=bound_by, cpu_plain_s=cpu_s)
+    torch.use_deterministic_algorithms(True)
+    try:
+        library()
+        det_bits = torch.equal(out.cpu().view(torch.int32),
+                               cpu.view(torch.int32))
+        det_ms = time_ms(library)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    # a value and the order's entry read a position, a key read a run (at
+    # its marked first position), the sums written a slot, an add a
+    # position; and the longest run's chain of dependent adds, 4 cycles each
+    runs = int((order < 0).sum())
+    nbytes = ((msg.element_size() + order.element_size()) * M
+              + dp.element_size() * runs + 4 * n_out)
+    clock = sm_clock_mhz()
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flat_bytes_ms = (16 * M + 4 * n_out) / HBM_BYTES_PER_S * 1e3
+    chain_ms = longest * 4 / (clock * 1e6) * 1e3
+    bound_ms, bound_by = bound(nbytes, M)
+    if chain_ms > bound_ms:
+        bound_ms, bound_by = chain_ms, "operations"
+    row = dict(positions=M, slots=n_out, runs=runs, longest_run=longest,
+               max_abs_err=err, ms=time_ms(call),
+               launch_ms=host_launch_ms(call),
+               plain_ms=time_ms(lambda: run_sum_plain(
+                   dp, msg, n_out, order, stride=P, marked=True)),
+               library_ms=time_ms(library),
+               deterministic_index_add_ms=det_ms,
+               deterministic_index_add_equals_cpu=det_bits,
+               bytes_ms=bytes_ms, flat_bytes_ms=flat_bytes_ms,
+               chain_ms=chain_ms, sm_clock_mhz=clock,
+               bound_ms=bound_ms, bound_by=bound_by, cpu_plain_s=cpu_s)
     print("run_sum " + json.dumps(row))
     print(f"run_sum: equal to the CPU's plain version bit for bit over "
           f"{M} positions ({int(live.sum())} messages, the padding skipped;"
           f" the longest run {longest}); within rtol "
-          f"{SUM_RTOL} of index_add_ on the card")
+          f"{SUM_RTOL} of index_add_ on the card; index_add_ under "
+          f"deterministic algorithms "
+          f"{'equals' if det_bits else 'differs from'} the CPU's bits")
     return dict(name="run_sum", route="cuda",
                 source="src/repro_torch/kernels/csrc/run_sum.cu",
                 replaces="none: src/repro/core/engine.py:130 "
@@ -833,7 +879,7 @@ def check_scatter_order(pg, seed: int) -> None:
 
     msg, dp, aact, order = dense_round(pg, seed, round_=3)
     prog = PageRank(1)
-    A, cnt = _combine_scatter(prog, pg.P, msg, dp, aact, order)
+    A, cnt = _combine_scatter(prog, pg.P, msg, dp, aact, order, marked=True)
     torch.cuda.synchronize()
     A_cpu, cnt_cpu = _combine_scatter(prog, pg.P, msg.cpu(), dp.cpu(),
                                       aact.cpu())
@@ -1276,8 +1322,8 @@ def fold_cost(pg, slots: int, seed: int = 0) -> dict:
     (the unordered atomics it replaced) and the bound of the fold's
     function, whatever its design: sp a slot, dp a message, each named
     source's flag and each active one's value and degree, A and cnt read
-    and written at each distinct destination. The sort and run_sum's
-    gather are the ordered design's overhead, outside the bound."""
+    and written at each distinct destination. The sort is the ordered
+    design's overhead, outside the bound."""
     import torch
     from repro_torch.core import PageRank
     from repro_torch.core.engine import StreamKernels, _gen_messages

@@ -174,11 +174,11 @@ def segment_sum(sorted_dst, sorted_msg, P: int) -> torch.Tensor:
     stand, the padding skipped), on the CPU and on the card alike; other
     types keep ``index_add_``, exact in any order."""
     valid = sorted_dst < P
+    if sorted_msg.dtype == torch.float32:  # row-local keys, stride P
+        return run_sum(torch.where(valid, sorted_dst, -1),
+                       sorted_msg.contiguous(), sorted_dst.shape[0] * P,
+                       stride=P).view(-1, P)
     idx = _flat_index(sorted_dst, valid, P)
-    if sorted_msg.dtype == torch.float32:
-        key = torch.where(valid.reshape(-1), idx, -1).view(valid.shape)
-        return run_sum(key, sorted_msg.contiguous(),
-                       sorted_dst.shape[0] * P).view(-1, P)
     out = torch.zeros(sorted_dst.shape[0] * P, dtype=sorted_msg.dtype,
                       device=sorted_msg.device)
     out.index_add_(0, idx, torch.where(valid, sorted_msg, 0).reshape(-1))

@@ -161,7 +161,8 @@ def _ordered_sum(program) -> bool:
             and program.msg_dtype == torch.float32)
 
 
-def _combine_scatter(program, P_dest, msg, dp, aact, order=None):
+def _combine_scatter(program, P_dest, msg, dp, aact, order=None,
+                     marked=False):
     """IO-Recoded: direct in-memory scatter-combine into A_s (paper §5).
 
     A float32 sum adds each destination slot's messages in one stated
@@ -172,8 +173,9 @@ def _combine_scatter(program, P_dest, msg, dp, aact, order=None):
     order: None sorts ``dp`` here (one stable sort a row); a ``(rows, E)``
     tensor is that sort already made (the dense groups'
     ``PartitionedGraph.dst_order``, whose padding, marked ``dp`` = -1 here,
-    comes last); :data:`PRESORTED` says each row's active messages already
-    stand in one run a destination, and only those are added. Slots left
+    comes last, and whose sign bit marks its runs: ``marked``);
+    :data:`PRESORTED` says each row's active messages already stand in one
+    run a destination, and only those are added. Slots left
     out (inactive, padding) hold e0 = 0, and adding 0 changes no sum's
     bits. MIN, MAX, integer sums and the counts are exact in any order and
     keep ``scatter_reduce_`` and ``index_add_``."""
@@ -182,13 +184,16 @@ def _combine_scatter(program, P_dest, msg, dp, aact, order=None):
     ar = torch.arange(n, device=msg.device)[:, None]
     idx = dp.long().clamp(min=0) + ar * P_dest
     if _ordered_sum(program):
+        # row-local keys: run_sum adds row r's destination d at r * P_dest
+        # + d, and skips a negative one
         if order is PRESORTED:
-            key, order = torch.where(aact, idx, -1), None
+            key, order = torch.where(aact, dp, -1), None
         else:
-            key = torch.where(dp >= 0, idx, -1)
+            key = dp
             if order is None:
                 order = torch.sort(dp, dim=-1, stable=True).indices
-        A_s = run_sum(key, msg, n * P_dest, order)
+        A_s = run_sum(key.contiguous(), msg, n * P_dest, order,
+                      stride=P_dest, marked=marked)
     else:
         A_s = comb.identity((n * P_dest,), program.msg_dtype, msg.device)
         comb.scatter(A_s, idx.reshape(-1), msg.reshape(-1))
@@ -217,7 +222,7 @@ def _contrib_dense(program, pg, values, active, step, dest,
         # the padding (src_pos -1) marked, to be left out of the sums
         return _combine_scatter(program, pg.P, msg,
                                 torch.where(sp >= 0, dp, -1), aact,
-                                pg.dst_order[ar, dest])
+                                pg.dst_order[ar, dest], marked=True)
     return combine(program, pg.P, msg, dp, aact)
 
 
@@ -512,9 +517,9 @@ class StreamKernels:
                                   sp[None], w[None], active[None], step)
         idx = dp.long()
         if _ordered_sum(self.program):
-            key = torch.where(aact, idx[None], -1)
+            key = torch.where(aact, dp[None], -1)
             order = torch.sort(key, dim=-1, stable=True).indices
-            run_sum(key, msg, self.P, order, out=A)
+            run_sum(key, msg, self.P, order, out=A, stride=0)
         else:
             self.program.combiner.scatter(A, idx, msg[0])
         cnt.index_add_(0, idx, aact[0].to(torch.int32))

@@ -29,6 +29,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.graph.csr import Graph
 from repro_torch.graph.recode import RecodeMap, recode_ids
+from repro_torch.kernels.run_sum import marked_order
 
 
 def _round_up(x: int, m: int) -> int:
@@ -91,9 +92,11 @@ class PartitionedGraph:
         """``(rows, n, E_cap)`` int32: each edge group's slots in the stable
         order of their ``dst_pos``, the padding (``src_pos`` -1) last: the
         order in which the engine adds a group's float messages
-        (``core/engine.py::_combine_scatter``). Sorted at first use, a row
-        at a time, and kept: E_cap int32 a group. An abstract partition
-        (on ``meta``) has no order to sort."""
+        (``core/engine.py::_combine_scatter``), marked for
+        ``run_sum(..., marked=True)`` (``kernels.run_sum.marked_order``;
+        ``kernels.run_sum.unmark`` gives the slots). Sorted at first use,
+        a row at a time, and kept: E_cap int32 a group. An abstract
+        partition (on ``meta``) has no order to sort."""
         if self.device.type == "meta":
             raise ValueError("an abstract partition has no dst_order; the "
                              "dry run reckons its bytes from the shape")
@@ -101,7 +104,7 @@ class PartitionedGraph:
                           device=self.device)
         for r in range(self.n_rows):
             key = torch.where(self.src_pos[r] >= 0, self.dst_pos[r], self.P)
-            out[r] = torch.sort(key, dim=-1, stable=True).indices
+            out[r] = marked_order(key)
         return out
 
     @property

@@ -52,9 +52,10 @@ REDUCE_BYTES = 5 * 8
 #: PageRank's float32 aggregator, gathered from every rank
 GATHER_BYTES = 4
 #: the torch backend's temporaries a dense group slot: the gathered sp, dp
-#: and w, the message and its flag, the int64 index and key, run_sum's
-#: position-order scratch
-TORCH_SLOT_TEMP = 12 + 4 + 1 + 8 + 8 + 12
+#: and w, the message and its flag, the int64 index of the counts, the
+#: padding-marked dp (run_sum's row-local keys) and the group's row of
+#: dst_order (run_sum keeps no scratch a slot)
+TORCH_SLOT_TEMP = 12 + 4 + 1 + 8 + 4 + 4
 
 
 def superstep_bytes(mode: str, n: int, P: int, E_cap: int, *,

@@ -33,7 +33,8 @@ from repro_torch.kernels.digest import digest, digest_plain
 from repro_torch.kernels.edge_combine import (
     COMBINERS, edge_combine, edge_combine_plain, pair_counts,
 )
-from repro_torch.kernels.run_sum import run_sum, run_sum_plain
+from repro_torch.kernels import run_sum as run_sum_mod
+from repro_torch.kernels.run_sum import mark, run_sum, run_sum_plain
 
 
 @pytest.fixture
@@ -112,6 +113,125 @@ def test_run_sum_accumulating_kernel_equals_the_cpu(cuda, perm_dtype, rows,
     torch.cuda.synchronize()
     assert got is out and run_sum.launches == before + 1
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def _laid_out(rows, E, runs, seed):
+    """Row-local keys and values whose positions, read through a random
+    permutation of each row, stand in the given runs: ``runs(r)`` lists row
+    r's (key, length) in position order, a key of -1 for skipped
+    positions, the rest of the row skipped. Values mix magnitudes with
+    -0.0, +-inf, NaN and subnormals."""
+    rng = np.random.default_rng(seed)
+    seq = np.full((rows, E), -1, np.int64)
+    for r in range(rows):
+        at = 0
+        for k, n in runs(r):
+            seq[r, at:at + n] = k
+            at += n
+        assert at <= E
+    perm = np.stack([rng.permutation(E) for _ in range(rows)])
+    key = np.empty_like(seq)
+    np.put_along_axis(key, perm, seq, -1)
+    val = (rng.standard_normal((rows, E))
+           * 10.0 ** rng.integers(-4, 5, (rows, E))).astype(np.float32)
+    special = np.array([-0.0, np.inf, -np.inf, np.nan, 1e-45, -3e-39,
+                        1.2e-38], np.float32)
+    pick = rng.random((rows, E)) < 0.001
+    val[pick] = rng.choice(special, int(pick.sum()))
+    return key, val, perm
+
+
+def _same_bits(got, want):
+    """Equal bits, but where the CPU's sum is NaN: there the card's add
+    returns its canonical NaN and the CPU's keeps an operand's payload, so
+    NaN stands for NaN."""
+    got, want = got.cpu(), want.cpu()
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32),
+                       want[~nan].view(torch.int32))
+
+
+def _hub_among_short(r):
+    rng = np.random.default_rng(r)
+    runs, k = [], 0
+    for _ in range(3000):
+        runs.append((k, int(rng.integers(1, 4))))
+        k += 1
+    runs.insert(1700, (k, 30_000))
+    return runs
+
+
+#: run layouts of the card's run_sum tests, given the kernel's tile T (the
+#: positions a block adds before it carries a run on, read from the built
+#: kernel): (rows, E, n_out, runs)
+RUN_CASES = {
+    # one run over many tiles: 100,000 positions of one key
+    "one long run": lambda T: (1, 100_500, 10,
+                               lambda r: [(-1, 200), (3, 100_000)]),
+    "hub among short runs": lambda T: (2, 45_000, 3_100, _hub_among_short),
+    # runs of a tile's length and one off it, from a tile's first position
+    # (and ending on a tile's last), and ones over two tiles
+    "a tile long, and one off": lambda T: (3, 12 * T, 40, lambda r: [
+        (k, n) for k, n in enumerate(
+            [T, T - 1, 1, T + 1, 2 * T - 1, 1, 2 * T, 2 * T + 1, T - 2,
+             3])]),
+    # a run from just before a tile's end to the row's end, two tiles on
+    "across a tile to the row's end": lambda T: (2, 3 * T + 17, 50, lambda r: [
+        (1, T - 60), (2, 1), (3, 2 * T + 76)]),
+    "several hubs in each of 8 rows": lambda T: (8, 30_000, 300, lambda r: [
+        (k, 1_200 + 499 * ((k + r) % 5) if k % 40 == 3 else 1 + k % 3)
+        for k in range(300)]),
+    "skipped keys before and after": lambda T: (2, 20_000, 200, lambda r: [
+        (-1, 3_000)] + [(k, 1 + 50 * (k % 4)) for k in range(150)]
+        + [(-1, 1_000)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RUN_CASES))
+@pytest.mark.parametrize("keys", ["flat int64", "row-local int32",
+                                  "row-local int32, runs marked"])
+@pytest.mark.parametrize("perm_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_run_sum_kernel_runs_long_and_short(cuda, case, keys, perm_dtype,
+                                            accumulate):
+    """The kernel against its plain version on the CPU, bit for bit, on
+    runs within a tile and runs carried from tile to tile: one run of
+    100,000 values, a 30,000-value hub among runs of 1-3, runs of a tile's
+    length and one off it from a tile's first position and over two tiles,
+    a run from just before a tile's end to its row's end, several hubs in
+    every one of 8 rows, skipped keys before and after the runs, and values
+    with -0.0, +-inf, NaN and subnormals; flat and row-local keys, the
+    latter also with their runs marked in the permutation's sign bit (keys
+    read a run), both permutation types, both forms; one launch a call."""
+    rows, E, n_out, runs = RUN_CASES[case](run_sum_mod.tile())
+    key, val, perm = _laid_out(rows, E, runs, seed=len(case))
+    stride = None
+    if keys == "flat int64":
+        key = np.where(key >= 0, key + np.arange(rows)[:, None] * n_out, -1)
+    else:
+        key, stride = key.astype(np.int32), n_out
+    key, val = torch.from_numpy(key), torch.from_numpy(val)
+    perm = torch.from_numpy(perm).to(perm_dtype)
+    marked = keys.endswith("marked")
+    if marked:
+        perm = mark(perm, key)
+    start = None
+    if accumulate:
+        rng = np.random.default_rng(rows)
+        start = torch.from_numpy((rng.standard_normal(rows * n_out)
+                                  * 10.0 ** rng.integers(-4, 5, rows * n_out)
+                                  ).astype(np.float32))
+        start[::97] = -0.0
+    want = run_sum_plain(key, val, rows * n_out, perm,
+                         None if start is None else start.clone(), stride,
+                         marked)
+    before = run_sum.launches
+    got = run_sum(key.to(cuda), val.to(cuda), rows * n_out, perm.to(cuda),
+                  None if start is None else start.to(cuda), stride, marked)
+    torch.cuda.synchronize()
+    assert run_sum.launches == before + 1
+    _same_bits(got, want)
 
 
 def test_streamed_fold_and_segment_sum_on_card_equal_cpu(cuda):

@@ -21,7 +21,9 @@ from repro_torch.core.engine import (
     _contrib_dense, _gen_messages,
 )
 from repro_torch.graph import partition_graph, rmat_graph
-from repro_torch.kernels.run_sum import run_sum, run_sum_plain
+from repro_torch.kernels.run_sum import (
+    mark, marked_order, run_sum, run_sum_plain, unmark,
+)
 
 SETTINGS = settings(max_examples=40, deadline=None,
                     suppress_health_check=[HealthCheck.too_slow])
@@ -141,13 +143,19 @@ def graph():
 
 
 def test_dst_order_is_the_stable_sort_of_each_group(graph):
-    """Each group's slots by destination, stably, the padding last."""
+    """Each group's slots by destination, stably, the padding last; the
+    sign bit marks each group's first position and each where the
+    destination (or the padding) changes."""
     pg = graph
     order = pg.dst_order
     assert order.dtype == torch.int32 and order.shape == pg.dst_pos.shape
     key = np.where(pg.src_pos.numpy() >= 0, pg.dst_pos.numpy(), pg.P)
     want = np.argsort(key, axis=-1, kind="stable")
-    np.testing.assert_array_equal(order.numpy(), want)
+    np.testing.assert_array_equal(unmark(order).numpy(), want)
+    sorted_key = np.take_along_axis(key, want, -1)
+    starts = np.ones_like(sorted_key, dtype=bool)
+    starts[..., 1:] = sorted_key[..., 1:] != sorted_key[..., :-1]
+    np.testing.assert_array_equal(order.numpy() < 0, starts)
     assert pg.dst_order is order  # made once
 
 
@@ -396,3 +404,120 @@ def test_run_sum_checks_its_inputs():
         run_sum(key, val, 4, out=torch.zeros(4, dtype=torch.float64))
     assert torch.equal(run_sum_plain(key, val, 0), torch.zeros(0))
     assert run_sum.launches == 0  # the CPU runs the plain version
+
+
+# --------------------------------------------------------------------------
+# run_sum's row-local keys and marked runs, through its plain version and
+# the callers that hand them over
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("key_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("perm_form", [None, "int32", "int64",
+                                       "int32 marked", "int64 marked"])
+@SETTINGS
+@given(rows=st.integers(1, 3), E=st.integers(1, 600), n_out=st.integers(1, 50),
+       skip_share=st.sampled_from([0.0, 0.3]), accumulate=st.booleans(),
+       seed=st.integers(0, 2**31 - 1))
+def test_run_sum_row_local_keys_equal_np_add_at(key_dtype, perm_form, rows,
+                                                E, n_out, skip_share,
+                                                accumulate, seed):
+    """Row-local keys with the row stride (row r's key k adds at
+    r * stride + k), read directly, through a permutation, or through one
+    whose sign bit marks the runs (``mark``): np.add.at's bits, or
+    ``index_add_``'s onto ``out``; the same bits as the flat int64 form."""
+    rng = np.random.default_rng(seed)
+    key = rng.integers(0, n_out, (rows, E))
+    key[rng.random((rows, E)) < skip_share] = -1
+    val = (rng.standard_normal((rows, E))
+           * 10.0 ** rng.integers(-4, 5, (rows, E))).astype(np.float32)
+    perm = np.argsort(key, axis=-1, kind="stable")
+    flat = np.where(key >= 0, key + np.arange(rows)[:, None] * n_out, -1)
+    order = np.take_along_axis(flat, perm, -1).ravel()
+    vals = np.take_along_axis(val, perm, -1).ravel()
+    start = rng.standard_normal(rows * n_out).astype(np.float32)
+    want = torch.from_numpy(start.copy() if accumulate
+                            else np.zeros(rows * n_out, np.float32))
+    want.index_add_(0, torch.from_numpy(order[order >= 0]),
+                    torch.from_numpy(vals[order >= 0]))
+    if not accumulate:
+        np.testing.assert_array_equal(
+            _bits(want),
+            _bits(_add_at(rows * n_out, order[order >= 0], vals[order >= 0])))
+    tk, tv = torch.from_numpy(key).to(key_dtype), torch.from_numpy(val)
+    marked = perm_form is not None and perm_form.endswith("marked")
+    if perm_form is None:
+        tk, tv, tp = tk.gather(1, torch.from_numpy(perm)), \
+            tv.gather(1, torch.from_numpy(perm)), None
+    else:
+        tp = torch.from_numpy(perm).to(getattr(torch, perm_form.split()[0]))
+        if marked:
+            tp = mark(tp, tk)
+    out = torch.from_numpy(start.copy()) if accumulate else None
+    got = run_sum(tk, tv, rows * n_out, tp, out=out, stride=n_out,
+                  marked=marked)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    flat_form = run_sum(
+        torch.from_numpy(np.take_along_axis(flat, perm, -1)),
+        torch.from_numpy(np.take_along_axis(val, perm, -1)), rows * n_out,
+        out=torch.from_numpy(start.copy()) if accumulate else None)
+    np.testing.assert_array_equal(_bits(got), _bits(flat_form))
+
+
+@pytest.mark.parametrize("perm_dtype", [torch.int32, torch.int64])
+def test_mark_sets_the_sign_bit_at_each_run_start(perm_dtype):
+    """``mark``: the sign bit at each row's first position and wherever the
+    key read through the permutation changes (a skipped run too);
+    ``unmark`` gives the permutation back; ``marked_order`` is the stable
+    sort so marked, in int32."""
+    key = torch.tensor([[3, -1, 3, 5, 5, -1], [0, 0, 0, 2, 2, 2]])
+    perm = torch.sort(key, dim=-1, stable=True).indices.to(perm_dtype)
+    marked = mark(perm, key)
+    assert torch.equal(marked_order(key), mark(perm.int(), key))
+    assert marked.dtype == perm_dtype
+    assert torch.equal(unmark(marked), perm)
+    assert (marked < 0).tolist() == [[True, False, True, False, True, False],
+                                     [True, False, False, True, False,
+                                      False]]
+
+
+def test_run_sum_checks_row_local_and_marked_inputs():
+    key = torch.zeros(2, 3, dtype=torch.int32)
+    val = torch.zeros(2, 3)
+    perm = torch.zeros(2, 3, dtype=torch.int32)
+    assert torch.equal(run_sum(key, val, 6, stride=3), torch.zeros(6))
+    assert torch.equal(run_sum(key.long(), val, 6, perm, stride=3),
+                       torch.zeros(6))
+    with pytest.raises(ValueError, match="stride"):
+        run_sum(key, val, 6, stride=-1)
+    with pytest.raises(ValueError, match="marked"):
+        run_sum(key, val, 6, stride=3, marked=True)
+    # marks that are not mark()'s over the keys: refused on the CPU
+    runs = torch.tensor([[0, 0, 1], [2, 2, 2]], dtype=torch.int32)
+    good = marked_order(runs)
+    assert torch.equal(run_sum(runs, val, 9, good, stride=3, marked=True),
+                       torch.zeros(9))
+    for bad in (unmark(good), good | torch.iinfo(torch.int32).min):
+        with pytest.raises(ValueError, match="mark"):
+            run_sum(runs, val, 9, bad, stride=3, marked=True)
+    with pytest.raises(TypeError, match="int32 row-local keys"):
+        run_sum(key.short(), val, 6, stride=3)
+    assert run_sum.launches == 0  # the CPU runs the plain version
+
+
+@pytest.mark.parametrize("dst_dtype", [torch.int32, torch.int64])
+def test_segment_sum_hands_run_sum_row_local_keys(dst_dtype):
+    """segment_sum's float32 sum through run_sum's row-local form, the
+    padding (dst == P) skipped, for int32 and int64 destinations: the bits
+    of np.add.at over the flat slots."""
+    rng = np.random.default_rng(7)
+    rows, M, P = 3, 400, 17
+    dst = np.sort(np.where(rng.random((rows, M)) < 0.2, P,
+                           rng.integers(0, P, (rows, M))), axis=-1)
+    msg = (rng.standard_normal((rows, M))
+           * 10.0 ** rng.integers(-4, 5, (rows, M))).astype(np.float32)
+    got = segment_sum(torch.from_numpy(dst).to(dst_dtype),
+                      torch.from_numpy(msg), P)
+    valid = dst < P
+    idx = (dst + np.arange(rows)[:, None] * P)[valid]
+    np.testing.assert_array_equal(
+        _bits(got.reshape(-1)), _bits(_add_at(rows * P, idx, msg[valid])))

@@ -10,7 +10,9 @@ Builds that tree's kernels, partitions RMAT (edge factor 16, uniform
 weights, seed 0) in 8 shards, and for ``recoded``, ``basic``, ``basic_sc``
 and ``recoded_compact`` on the torch backend times superstep 1 from the
 initial state: host clock around one ``step`` ending in a sync, the median
-of ``--reps`` after one warm-up. With ``--streamed`` it spills the
+of ``--reps`` after one warm-up, with the peak device memory from the
+engine's creation on (the partition included; ``dst_order`` in the first
+mode that builds it). With ``--streamed`` it spills the
 partition to a store in a ``.mode_times-*`` directory of the checkout
 (removed after) and runs unpipelined streamed PageRank (3 supersteps) at
 the default 8-block chunks and at 256-block chunks, each superstep
@@ -42,6 +44,9 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--streamed", action="store_true")
     ap.add_argument("--graph-cache", default=None)
+    ap.add_argument("--chunk-blocks", type=int, nargs="*", default=None,
+                    help="streamed: the chunk sizes to run (default: the "
+                         "default chunks and 256)")
     args = ap.parse_args(argv)
     src = os.path.abspath(args.src)
     sys.path.insert(0, src)
@@ -69,10 +74,12 @@ def main(argv=None) -> int:
     print(f"graph {time.perf_counter() - t0:.1f} s {pg.shape_summary}")
     out = dict(src=src, card=card, scale=args.scale)
     if args.streamed:
-        out.update(streamed_times(pg))
+        out.update(streamed_times(pg, args.chunk_blocks))
         print(json.dumps(out))
         return 0
     for mode in MODES:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         eng = GraphDEngine(pg, PageRank(5), EngineConfig(mode=mode,
                                                          backend="torch"))
         values, active = eng.init()
@@ -84,9 +91,11 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         out[mode] = dict(median_ms=float(np.median(times[1:])),
-                         ms=times[1:])
+                         ms=times[1:],
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
         print(f"{mode}: {out[mode]['median_ms']:.3f} ms a superstep "
-              f"(runs {[round(t, 3) for t in times[1:]]})")
+              f"(runs {[round(t, 3) for t in times[1:]]}), peak device "
+              f"memory {out[mode]['peak_gib']:.3f} GiB")
     print(json.dumps(out))
     return 0
 
@@ -110,9 +119,10 @@ def cached_graph(cache, scale: int):
     return g
 
 
-def streamed_times(pg, supersteps: int = 3) -> dict:
-    """Unpipelined streamed PageRank at the default chunks and at 256-block
-    chunks: each superstep's ms."""
+def streamed_times(pg, chunk_blocks=None, supersteps: int = 3) -> dict:
+    """Unpipelined streamed PageRank at each of ``chunk_blocks`` (the
+    default chunks and 256-block chunks unless given): each superstep's
+    ms."""
     from repro_torch.core import (
         EngineConfig, GraphDEngine, PageRank, StreamConfig,
     )
@@ -122,7 +132,7 @@ def streamed_times(pg, supersteps: int = 3) -> dict:
     out = {}
     try:
         pgs, store = spill_partition(pg, os.path.join(root, "edges"))
-        for cb in (StreamConfig().chunk_blocks, 256):
+        for cb in chunk_blocks or (StreamConfig().chunk_blocks, 256):
             eng = GraphDEngine(pgs, PageRank(supersteps), EngineConfig(
                 mode="streamed", stream=StreamConfig(chunk_blocks=cb)),
                 stream_store=store)
