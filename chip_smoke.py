@@ -50,7 +50,7 @@ Phases, each of which ends the run non-zero on a failure:
     its edge groups spilled from the card to a store on disk (in a
     ``.chip_smoke-streamed-*`` directory of the checkout, removed at the
     end), then PageRank unpipelined at the default chunks (1 superstep),
-    PageRank (3 supersteps) and Hash-Min (to quiescence) at 256-block
+    PageRank (2 supersteps) and Hash-Min (to quiescence) at 256-block
     chunks, unpipelined and through the full-duplex channel, and a
     semi-external Hash-Min, each against a ``recoded``
     run (Hash-Min exactly, PageRank within 1e-5 of its largest value),
@@ -69,27 +69,29 @@ Phases, each of which ends the run non-zero on a failure:
     forces ``streamed`` (against the in-memory run), and a checkpoint and
     run-file-log drill (one shard recovered; a checkpoint refused against
     another store);
-12. ``GraphDJob(launch="processes")`` on the main graph: one worker process
-    a shard, each on the card, over the shared-filesystem transport,
+12. ``GraphDJob(launch="processes")`` on RMAT scale 19 (the main graph's
+    partition and spill took a minute a job): one worker process a shard,
+    each on the card, over the shared-filesystem transport,
     Hash-Min to quiescence and PageRank (3 supersteps) at 256-block chunks,
     each against the threads launch of the same job (Hash-Min exactly,
     PageRank within 1e-6 of its largest value; superstep stats, bitmaps
     and halt step exactly), with ms a superstep for both, each worker's
     start to its first heartbeat and first arrival, peak host RSS and
     device memory (polled from ``/proc`` and ``nvidia-smi`` while the job
-    runs) beside the planned per-process bytes; then the kill -9 drill at
-    scale 19 (Hash-Min with checkpoints and message logs, shard 3 killed in
-    superstep 2, respawned alone, equal to an undisturbed processes run);
-13. the same two scale-24 jobs over the socket transport
+    runs) beside the planned per-process bytes; then the kill -9 drill on
+    the same graph (Hash-Min with checkpoints and message logs, shard 3
+    killed in superstep 2, respawned alone, equal to an undisturbed
+    processes run);
+13. the same two jobs over the socket transport
     (``launch_opts={"transport": "sockets"}``: 8 worker processes and a
     coordinator process, messages over loopback TCP), each against phase
     12's file-transport run of the same plan (Hash-Min, its bitmaps,
     superstep stats and halt step exactly, PageRank within 1e-6 of its
     largest value), with ms a superstep beside the files run's, each
     worker's start to its first arrival, the bytes on the wire a superstep
-    and the coordinator process's resident set; then, at scale 19, an
-    undisturbed sockets run and the two socket drills, each against phase
-    12's undisturbed run: a worker killed with a frame half on the wire
+    and the coordinator process's resident set; then an undisturbed
+    sockets run and the two socket drills, each against phase 12's
+    undisturbed run: a worker killed with a frame half on the wire
     (``kill_net``, one respawn of shard 1) and the coordinator killed in a
     barrier (``coord_kill``, one coordinator respawn, no worker respawn);
 14. ``GraphDEngine(mesh=)`` through ``launch.mesh.run_mesh_cases``, one
@@ -125,7 +127,19 @@ Phases, each of which ends the run non-zero on a failure:
     C1-C3 variants, at phase 14's link rate (no collective term on a
     one-GPU machine); the model's resident bytes equal to the main
     partition's tensors and ``dst_order``, and its HBM term for the
-    emulated 8-shard PageRank superstep at or below phase 9's measured one.
+    emulated 8-shard PageRank superstep at or below phase 9's measured one;
+16. LM serving (``repro_torch.serving``, no kernel of its own): (a) one
+    pattern group of gemma3-12b (5 local layers, 1 global) at full width
+    with the real vocab in float32, a prefill of 16 tokens and 4 decode
+    steps (B = 2) on the card against the same weights on the CPU, within
+    1e-4 of the largest |logit|; (b) gemma3-12b at full width and depth
+    (48 layers, bf16 weights from ``--seed``) serving 4 requests of
+    1,100-token prompts (past the 1,024 window, not a multiple of it) and
+    32 tokens each: two greedy runs with identical tokens, each decode
+    step's logits against ``forward`` over the same tokens (the bf16 gap
+    printed; the same depth, width and tokens in float32 held within 1e-4
+    of the largest |logit|), prefill and decode times beside their bounds,
+    peak device memory.
 
 It prints the launch counts of the main path's runs, and the per-kernel JSON
 line and the device line last. It needs a CUDA device and the CUDA toolkit.
@@ -1173,6 +1187,22 @@ def _busy_ms(intervals) -> float:
     return busy / 1e3
 
 
+def device_ops(prof, what: str) -> tuple[list, dict, float]:
+    """Of a ``torch.profiler`` trace: its device events (failing where
+    there are none), ``{op name: (count, total us)}`` and the ms the device
+    was busy (the union of the events' intervals)."""
+    from torch.autograd import DeviceType
+
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(bool(dev), f"{what}: the trace holds no device events")
+    ops = {}
+    for e in dev:
+        c, t = ops.get(e.name, (0, 0.0))
+        ops[e.name] = (c + 1, t + (e.time_range.end - e.time_range.start))
+    return dev, ops, _busy_ms([(e.time_range.start, e.time_range.end)
+                               for e in dev])
+
+
 def phase_profile(pg, name: str, program, steps_before: int,
                   top: int = 10) -> dict:
     """Superstep ``steps_before`` of ``program`` on the main path (kernel
@@ -1180,7 +1210,6 @@ def phase_profile(pg, name: str, program, steps_before: int,
     each with its count, and the share of the superstep's wall time the
     card was idle."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import EngineConfig, GraphDEngine
@@ -1196,13 +1225,7 @@ def phase_profile(pg, name: str, program, steps_before: int,
         _, _, st = eng.step(values, active, steps_before)
         float(st.n_msgs)  # the superstep's one host sync
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    check(bool(dev), "profile: the trace holds no device events")
-    ops = {}
-    for e in dev:
-        c, t = ops.get(e.name, (0, 0.0))
-        ops[e.name] = (c + 1, t + (e.time_range.end - e.time_range.start))
-    busy = _busy_ms([(e.time_range.start, e.time_range.end) for e in dev])
+    dev, ops, busy = device_ops(prof, "profile")
     span = (max(e.time_range.end for e in dev)
             - min(e.time_range.start for e in dev)) / 1e3
     total = sum(t for _, t in ops.values()) / 1e3
@@ -1377,7 +1400,7 @@ def phase_streamed(pg, ref: dict, recoded_peak_gib: float) -> dict:
     spilled to a store in a directory of this checkout (removed after),
     then PageRank (1 superstep), unpipelined at the default StreamConfig,
     and
-    PageRank (3) and Hash-Min through the channel at 256-block chunks; a
+    PageRank (2) and Hash-Min through the channel at 256-block chunks; a
     semi-external Hash-Min whose hot-block cache holds some blocks, and
     both unpipelined at 256-block chunks; each against a recoded run as
     deep (phase 5's for Hash-Min)."""
@@ -1397,13 +1420,13 @@ def phase_streamed(pg, ref: dict, recoded_peak_gib: float) -> dict:
         print(f"streamed: spilled {store.disk_bytes()} bytes of edge groups "
               f"in {spill_s:.1f} s (one (src, dst) group at a time from the "
               f"card); {store.nonempty_blocks()} non-empty blocks")
-        progs = (("pagerank3", lambda: PageRank(3)), ("hashmin", HashMin))
+        progs = (("pagerank2", lambda: PageRank(2)), ("hashmin", HashMin))
         # at the default 8-block chunks the reader's cost a chunk (~65,700
         # chunks a dense superstep) hides everything else, the channel
         # included: the channel runs at 256-block chunks, as do the
         # semi-external run and both programs unpipelined. There PageRank
         # alone runs, unpipelined and 1 superstep (~15-20 s; its ordered
-        # fold is what the chunk size changes), and PageRank 3 at
+        # fold is what the chunk size changes), and PageRank 2 at
         # 256-block chunks, each held to a recoded run as deep, to leave
         # phases 12-15 room in the smoke's time
         short = (("pagerank1", lambda: PageRank(1)),)
@@ -1866,17 +1889,18 @@ def steps_of(history) -> list:
     return [(h.n_active, h.n_msgs) for h in history]
 
 
-def phase_processes(g, seed: int) -> dict:
-    """GraphDJob(launch="processes") on the main graph: one worker process
-    a shard on the card, Hash-Min to its halt and PageRank (3 supersteps)
-    at 256-block chunks, each against the threads launch of the same job
-    (its engine: the call GraphDJob.run makes under launch="threads", on
-    the same spilled store and plan); then the kill -9 drill at scale
-    ELASTIC_SCALE: Hash-Min with checkpoints and message logs, shard 3
-    killed in superstep 2, against an undisturbed processes run. Returns
-    the figures, and under ``"files"`` what phase 13 holds its socket runs
-    to: each run's superstep stats, ms, values and bitmap (on the host),
-    and the scale-ELASTIC_SCALE graph."""
+def phase_processes(seed: int) -> dict:
+    """GraphDJob(launch="processes") on RMAT scale ELASTIC_SCALE (the main
+    graph's partition and spill cost a minute a job, more than the smoke's
+    time limit leaves): one worker process a shard on the card, Hash-Min
+    to its halt and PageRank (3 supersteps) at 256-block chunks, each
+    against the threads launch of the same job (its engine: the call
+    GraphDJob.run makes under launch="threads", on the same spilled store
+    and plan); then the kill -9 drill on the same graph: Hash-Min with
+    checkpoints and message logs, shard 3 killed in superstep 2, against
+    an undisturbed processes run. Returns the figures, and under
+    ``"files"`` what phase 13 holds its socket runs to: each run's
+    superstep stats, ms, values and bitmap (on the host), and the graph."""
     import torch
     from repro_torch.core import GraphDJob, HashMin, PageRank
     from repro_torch.graph import rmat_graph
@@ -1902,6 +1926,8 @@ def phase_processes(g, seed: int) -> dict:
     files: dict = {}
     out = dict(runtime=dict(seconds=probe_s, rss_bytes=probe_rss),
                files=files)
+    g = rmat_graph(scale=ELASTIC_SCALE, edge_factor=16, seed=seed,
+                   weights="uniform")
     root = tempfile.mkdtemp(prefix=".chip_smoke-procs-", dir=ROOT)
     try:
         for name, prog in (("hashmin", HashMin), ("pagerank",
@@ -1944,7 +1970,8 @@ def phase_processes(g, seed: int) -> dict:
                   f"{label}: worker processes seen for shards {shards}")
             n = len(hist)
             ms_p = [h.seconds * 1e3 for h in res.history]
-            print(f"{label}: {SHARDS} worker processes, {n} supersteps; "
+            print(f"{label}: RMAT scale {ELASTIC_SCALE}, {SHARDS} worker "
+                  f"processes, {n} supersteps; "
                   f"set-up (partition and spill) {setup_s:.1f} s; processes "
                   f"{procs_s:.3f} s in all, ms a superstep {ms_p[0]:.1f} "
                   f"(superstep 0, spawn included) then "
@@ -1964,13 +1991,11 @@ def phase_processes(g, seed: int) -> dict:
             job.close(delete=True)
             del v_p, a_p, v_t, a_t, job
         # the kill -9 drill
-        g20 = rmat_graph(scale=ELASTIC_SCALE, edge_factor=16, seed=seed,
-                         weights="uniform")
-        p = procs_plan(HashMin(), g20)
+        p = procs_plan(HashMin(), g)
         runs = {}
         for label, opts in (("undisturbed", None),
                             ("drill", {"kill": {"shard": 3, "step": 2}})):
-            job = GraphDJob(HashMin(), g20, plan=p, checkpoint_every=2,
+            job = GraphDJob(HashMin(), g, plan=p, checkpoint_every=2,
                             workdir=os.path.join(root, f"drill-{label}"),
                             launch="processes", launch_opts=opts)
             with ProcsWatch(job._dir("procs", "")) as watch:
@@ -2006,7 +2031,7 @@ def phase_processes(g, seed: int) -> dict:
                             recover_to=respawned[0][1])
         files["undisturbed"] = dict(steps=steps_of(r0.history), seconds=s0,
                                     values=v0.cpu(), active=a0.cpu())
-        files["graph"] = g20
+        files["graph"] = g
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return out
@@ -2053,16 +2078,17 @@ def _socket_job(prog, graph, workdir: str, label: str, opts=None,
     return res, state, secs, audit, report
 
 
-def phase_sockets(g, files: dict) -> dict:
-    """Phase 12's two scale-24 jobs over the socket transport, 8 worker
-    processes and one coordinator process, each against phase 12's
-    file-transport run of the same plan (kept in memory: this phase runs
-    no threads job); then, at scale ELASTIC_SCALE, an undisturbed sockets
-    run and the two socket drills against phase 12's undisturbed run."""
+def phase_sockets(files: dict) -> dict:
+    """Phase 12's two jobs over the socket transport, 8 worker processes
+    and one coordinator process, each against phase 12's file-transport
+    run of the same plan (kept in memory: this phase runs no threads job);
+    then, on the same graph, an undisturbed sockets run and the two socket
+    drills against phase 12's undisturbed run."""
     import torch
     from repro_torch.core import HashMin, PageRank
 
     out = {}
+    g = files["graph"]
     root = tempfile.mkdtemp(prefix=".chip_smoke-procs-", dir=ROOT)
     try:
         for name, prog in (("hashmin", HashMin),
@@ -2097,8 +2123,9 @@ def phase_sockets(g, files: dict) -> dict:
             n = len(res.history)
             ms = [h.seconds * 1e3 for h in res.history]
             arrivals = [w["first_arrival_s"] for w in rep["workers"]]
-            print(f"{label}: {SHARDS} worker processes and a coordinator "
-                  f"process, {n} supersteps; set-up (partition and spill) "
+            print(f"{label}: RMAT scale {ELASTIC_SCALE}, {SHARDS} worker "
+                  f"processes and a coordinator process, {n} supersteps; "
+                  f"set-up (partition and spill) "
                   f"{audit['setup_s']:.1f} s; sockets {secs:.3f} s in all "
                   f"against files {ref['seconds']:.3f} s; ms a superstep "
                   "(superstep 0, spawn included, first) sockets "
@@ -2120,8 +2147,8 @@ def phase_sockets(g, files: dict) -> dict:
             out[name] = dict(seconds=secs, ms=ms, gap=gap, net=net,
                              first_arrival_s=arrivals,
                              coord_rss=rep["coords"][0]["rss_bytes"])
-        # scale ELASTIC_SCALE: undisturbed, then the two drills
-        g20, ref = files["graph"], files["undisturbed"]
+        # undisturbed, then the two drills
+        ref = files["undisturbed"]
         runs = {}
         for label, opts in (
                 ("undisturbed", None),
@@ -2131,7 +2158,7 @@ def phase_sockets(g, files: dict) -> dict:
                                                "after_arrivals": 1}})):
             what = f"sockets drill {label}"
             res, (v, a), secs, audit, rep = _socket_job(
-                HashMin(), g20, os.path.join(root, f"drill-{label}"), what,
+                HashMin(), g, os.path.join(root, f"drill-{label}"), what,
                 opts=opts, checkpoint_every=2)
             check(steps_of(res.history) == ref["steps"],
                   f"{what}: superstep stats or halt step differ")
@@ -2739,6 +2766,240 @@ def phase_dryrun(pg, profile: dict, link_bytes_per_s, power: str) -> None:
           f"work; {time.perf_counter() - t0:.2f} s")
 
 
+# --------------------------------------------------------------------------
+# phase 16: LM serving, gemma3-12b
+# --------------------------------------------------------------------------
+
+LM_ARCH = "gemma3-12b"
+LM_F32_BAR = 1e-4  # the card against the CPU, of the largest |logit|
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 1100, 32  # the prompt passes the window
+
+
+def lm_logits(model, tokens, S: int, dec: int, device) -> list:
+    """The logits of a prefill over ``tokens[:, :S]`` and of ``dec`` decode
+    steps fed ``tokens[:, S:S + dec]``, on fresh caches."""
+    from repro_torch.serving.cache import make_caches
+    from repro_torch.serving.engine import decode_step, prefill
+
+    caches = make_caches(model.cfg, tokens.shape[0], S + dec, device=device)
+    out = [prefill(model, tokens[:, :S], caches)]
+    for p in range(S, S + dec):
+        out.append(decode_step(model, caches, tokens[:, p:p + 1], p))
+    return out
+
+
+def lm_prefill_flops(cfg, B: int, S: int) -> float:
+    """What a prefill must compute: two operations a weight a token in the
+    layers, the attention's QK and PV over the (query, key) pairs the causal
+    or windowed mask keeps, and the last position's float32 logits."""
+    from repro_torch.models.transformer import layer_specs
+
+    layer_params = cfg.n_params() - cfg.vocab * cfg.d_model * (
+        1 if cfg.tie_embeddings else 2)
+    pairs = sum(sum(min(p + 1, spec.window or S) for p in range(S))
+                for spec in layer_specs(cfg))
+    return (2 * B * S * layer_params
+            + 4 * B * cfg.n_heads * cfg.head_dim * pairs
+            + 2 * B * cfg.d_model * cfg.vocab)
+
+
+def profile_decode_step(model, caches, token, pos: int, top: int = 8) -> dict:
+    """One decode step under ``torch.profiler``: its host wall time, the
+    device's busy time and idle share, its device ops (launches) and the
+    ``top`` of them by total time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.engine import decode_step
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        decode_step(model, caches, token, pos)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev, ops, busy = device_ops(prof, "LM profile")
+    rows = sorted(ops.items(), key=lambda kv: -kv[1][1])[:top]
+    return dict(wall_ms=wall_ms, busy_ms=busy, idle=1 - busy / wall_ms,
+                device_ops=len(dev),
+                top=[(op[:90], c, dt / 1e3) for op, (c, dt) in rows])
+
+
+def phase_lm_group(seed: int, power: str) -> None:
+    """16(a): one pattern group of gemma3-12b (5 local layers, 1 global) at
+    full width with the real vocab, in float32, TF32 off: a prefill of 16
+    tokens and 4 decode steps (B = 2) on the card against the same weights
+    on the CPU, within 1e-4 of the largest |logit|."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.models.transformer import Transformer, init_params
+
+    t0 = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "LM: TF32 is on for float32 matmuls")
+    cfg = dataclasses.replace(get_config(LM_ARCH).with_groups(1),
+                              dtype=torch.float32)
+    card = init_params(cfg, seed, "cuda")
+    host = Transformer(cfg, {k: v.cpu() for k, v in card.state_dict().items()})
+    toks = synthetic_batch(cfg, 0, 20, 2, device="cpu")["tokens"]
+    got = torch.stack(lm_logits(card, toks.cuda(), 16, 4, "cuda")).cpu()
+    want = torch.stack(lm_logits(host, toks, 16, 4, "cpu"))
+    del card, host
+    err, top = max_abs_err(got, want), float(want.abs().max())
+    check(bool(torch.isfinite(got).all()), "LM one group: non-finite logits")
+    print(f"LM 16(a): {cfg.name} (6 layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab}) float32, B 2, prompt 16 + 4 decode steps: card "
+          f"against CPU max |diff| {err:.6g} of max |logit| {top:.6g} "
+          f"({err / top:.3g}, bar {LM_F32_BAR:g}); "
+          f"{time.perf_counter() - t0:.1f} s; card {power}")
+    check(err <= LM_F32_BAR * top,
+          f"LM one group: card against CPU {err:.6g} > {LM_F32_BAR} x {top:.6g}")
+
+
+def phase_lm_serve(seed: int, power: str) -> dict:
+    """16(b): gemma3-12b at full width and depth (48 layers, bf16 weights
+    drawn from ``seed``) serving 4 requests of 1,100-token prompts, past the
+    1,024 window and not a multiple of it, 32 tokens each. Greedy twice
+    (identical tokens), then a prefill and 31 decode steps between CUDA
+    events (the same tokens again), the times beside their bounds, one
+    decode step under the profiler, and each step's logits against
+    ``forward`` over the same tokens: printed in bf16, whose own rounding
+    moves logits that far (``tools/lm_precision.py``), and held in float32
+    (the same depth, width and tokens, weights drawn from ``seed`` in
+    float32) within 1e-4 of the largest |logit|."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.launch.roofline import (
+        BF16_DENSE_FLOPS_PER_S, HBM_BYTES_PER_S,
+    )
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.cache import cache_bytes, make_caches
+    from repro_torch.serving.engine import decode_step, greedy_generate, prefill
+
+    t0 = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    B, S, G = LM_BATCH, LM_PROMPT, LM_GEN
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, seed, "cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    # the analytic count leaves out the final norm's d_model
+    check(n_params == cfg.n_params() + cfg.d_model,
+          f"LM: {n_params} parameters, the config counts {cfg.n_params()} "
+          f"and the final norm's {cfg.d_model}")
+    prompt = synthetic_batch(cfg, 0, S, B, device="cuda")["tokens"]
+
+    runs = []
+    for _ in range(2):
+        caches = make_caches(cfg, B, S + G, device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        runs.append(greedy_generate(model, prompt, caches, G))
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t1
+    check(torch.equal(runs[0], runs[1]), "LM: two greedy runs differ")
+    tokens = runs[0]
+    c_bytes = cache_bytes(caches)
+
+    # the same loop between CUDA events, keeping each step's logits
+    caches = make_caches(cfg, B, S + G, device="cuda")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(G + 1)]
+    ev[0].record()
+    logits = [prefill(model, prompt, caches)]
+    ev[1].record()
+    picked = [logits[0].argmax(-1, keepdim=True).to(torch.int32)]
+    for i in range(1, G):
+        logits.append(decode_step(model, caches, picked[-1], S + i - 1))
+        ev[i + 1].record()
+        picked.append(logits[-1].argmax(-1, keepdim=True).to(torch.int32))
+    torch.cuda.synchronize()
+    prefill_ms = ev[0].elapsed_time(ev[1])
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(1, G)]
+    check(torch.equal(torch.cat(picked, 1), tokens),
+          "LM: the timed loop's tokens differ from greedy_generate's")
+    prof = profile_decode_step(model, caches, picked[-1], S + G - 1)
+    dec = torch.stack(logits, 1)  # (B, G, vocab)
+    del logits
+    full = torch.cat([prompt, tokens[:, :-1]], 1)  # (B, S + G - 1)
+    fwd = model(full)[:, S - 1:]
+    check(bool(torch.isfinite(dec).all()) and bool(torch.isfinite(fwd).all()),
+          "LM: non-finite logits")
+    gap, top = max_abs_err(dec, fwd), float(fwd.abs().max())
+    peak = torch.cuda.max_memory_allocated()
+    del fwd, dec, model, caches
+    torch.cuda.empty_cache()
+
+    # the decode path in float32 at the same size: decode against forward
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model32 = init_params(cfg32, seed, "cuda")
+    dec32 = torch.stack(lm_logits(model32, full, S, G - 1, "cuda"), 1)
+    fwd32 = model32(full)[:, S - 1:]
+    gap32, top32 = max_abs_err(dec32, fwd32), float(fwd32.abs().max())
+    peak32 = torch.cuda.max_memory_allocated()
+    del model32, dec32, fwd32
+    torch.cuda.empty_cache()
+    f32_s = time.perf_counter() - t1
+
+    median_ms = statistics.median(step_ms)
+    decode_bound_ms = (weight_bytes + c_bytes) / HBM_BYTES_PER_S * 1e3
+    flops = lm_prefill_flops(cfg, B, S)
+    prefill_bound_ms = max(flops / BF16_DENSE_FLOPS_PER_S,
+                           weight_bytes / HBM_BYTES_PER_S) * 1e3
+    out = dict(
+        params=n_params, weight_bytes=weight_bytes, cache_bytes=c_bytes,
+        prefill_ms=prefill_ms, prefill_tok_s=B * S / prefill_ms * 1e3,
+        decode_ms=median_ms, decode_tok_s=B / median_ms * 1e3,
+        decode_ms_min=min(step_ms), decode_ms_max=max(step_ms),
+        greedy_s=gen_s, decode_bound_ms=decode_bound_ms,
+        prefill_bound_ms=prefill_bound_ms, prefill_flops=flops,
+        peak_bytes=peak, base_bytes=base, bf16_gap=gap, bf16_max_logit=top,
+        f32_gap=gap32, f32_max_logit=top32, f32_peak_bytes=peak32,
+        f32_seconds=f32_s, profile=prof, init_s=t_init,
+        seconds=time.perf_counter() - t0)
+    print("LM 16(b) " + json.dumps(out))
+    print(f"LM 16(b): {cfg.name} {cfg.n_layers} layers bf16, {n_params} "
+          f"parameters, weights {weight_bytes} bytes, caches {c_bytes} bytes "
+          f"(B {B}, {S} + {G} positions); two greedy runs identical "
+          f"({gen_s:.3f} s the second, {B * G / gen_s:.1f} tok/s); prefill "
+          f"{prefill_ms:.3f} ms ({B * S / prefill_ms * 1e3:.0f} tok/s) against "
+          f"a bound of {prefill_bound_ms:.3f} ms ({flops:.6g} operations at "
+          f"the data sheet's dense bf16 rate); decode {median_ms:.3f} ms a "
+          f"token, median of {G - 1} (min {min(step_ms):.3f}, max "
+          f"{max(step_ms):.3f}; {B / median_ms * 1e3:.1f} tok/s) against a "
+          f"bound of {decode_bound_ms:.3f} ms (weight and cache bytes at "
+          f"3.35e12 bytes/s); one decode step profiled: {prof['device_ops']} "
+          f"device ops, device busy {prof['busy_ms']:.3f} ms of "
+          f"{prof['wall_ms']:.3f} ms (idle {prof['idle']:.4f}); peak device "
+          f"memory {peak} bytes ({base} before); weights drawn in "
+          f"{t_init:.1f} s; card {power}")
+    for op, count, ms in prof["top"]:
+        print(f"LM profile:   {ms:8.3f} ms  x{count:4d}  {op}")
+    print(f"LM 16(b): decode against forward, bf16 max |diff| {gap:.6g} "
+          f"(max |logit| {top:.6g}; printed, not held: bf16 rounding alone "
+          f"moves this model's logits 0.27-0.34 from float32's, "
+          f"tools/lm_precision.py); float32 max |diff| {gap32:.6g} of max "
+          f"|logit| {top32:.6g} ({gap32 / top32:.3g}, bar {LM_F32_BAR:g}; "
+          f"peak device memory {peak32} bytes, {f32_s:.1f} s); "
+          f"{out['seconds']:.1f} s; card {power}")
+    check(gap32 <= LM_F32_BAR * top32,
+          f"LM: float32 decode against forward {gap32:.6g} > {LM_F32_BAR} x "
+          f"{top32:.6g}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=24)
@@ -2773,33 +3034,62 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     t_part = time.perf_counter() - t0 - t_gen
     src = int(rmap.to_new(np.array([0]))[0])  # old id 0: RMAT's hub
-    del rmap  # the graph stays, for phase 12's jobs
+    del rmap  # the graph stays, for phase 14's partitions
     print(f"main graph: RMAT scale {args.scale} ef 16 seed {args.seed}: "
           f"|V| {pg.n_vertices} |E| {pg.n_edges} P {pg.P} E_cap {pg.E_cap} "
           f"blocks {pg.n_blocks}x{pg.edge_block}; host preprocessing "
           f"{t_gen + t_part:.1f} s (generate {t_gen:.1f} s, partition and "
           f"copy to the device {t_part:.1f} s)")
 
+    t_lap = [t_start]
+
+    def lap(phase: str) -> None:
+        """Each phase's wall time, for the smoke's time limit."""
+        now = time.perf_counter()
+        print(f"time: phase {phase} {now - t_lap[0]:.1f} s, "
+              f"{now - t_start:.1f} s since the start")
+        t_lap[0] = now
+
+    lap("1 and the main graph")
     kernels = phase_kernels(pg, args.seed)
+    lap("2")
     phase_small(args.seed)
+    lap("3")
     launches = phase_main(pg, src)
+    lap("4")
     modes = phase_modes(pg, args.seed)
+    lap("5")
     phase_recovery(pg, modes["hashmin_steps"])
+    lap("6")
     phase_elastic(args.seed)
+    lap("7")
     phase_prefix(pg, args.seed)
+    lap("8")
     # the dense path, and a late Hash-Min superstep: a small frontier
     from repro_torch.core import HashMin, PageRank
 
     profile = phase_profile(pg, "pagerank", PageRank(10), 2)
     phase_profile(pg, "hashmin", HashMin(), 4)
+    lap("9")
     recoded_peak = max(r["peak_gib"] for r in modes["rows"]
                        if r["run"].startswith("recoded "))
     streamed = phase_streamed(pg, modes["ref"], recoded_peak)
+    lap("10")
     phase_streamed_small(args.seed, streamed["signature"])
-    procs = phase_processes(g, args.seed)
-    phase_sockets(g, procs["files"])
+    lap("11")
+    procs = phase_processes(args.seed)
+    lap("12")
+    phase_sockets(procs["files"])
+    lap("13")
     mesh = phase_mesh(g, pg, src, args.seed, gpus, built["power"])
+    lap("14")
     phase_dryrun(pg, profile, mesh["link_bytes_per_s"], built["power"])
+    lap("15")
+    del pg, g, modes  # phase 16 holds up to 54 GB of the card
+    torch.cuda.empty_cache()
+    phase_lm_group(args.seed, built["power"])
+    phase_lm_serve(args.seed, built["power"])
+    lap("16")
     for name, k in kernels.items():
         k["launches"] = launches[name]
         k["mesh_launches_per_rank"] = mesh["launches_per_rank"][name]

@@ -1,5 +1,6 @@
-"""Carry a partition and vertex state across from numpy arrays, so that the
-port and the JAX package compute on identical inputs.
+"""Carry a partition and vertex state, or a language model's weights, across
+from numpy arrays, so that the port and the JAX package compute on identical
+inputs.
 
 The arrays come from the JAX package's objects as
 ``np.asarray(getattr(pg, field))``; nothing here imports that package.
@@ -50,3 +51,55 @@ def numpy_dtype(dtype: torch.dtype) -> np.dtype:
     """The numpy dtype of a torch dtype (for the numpy-side stores, the
     planner's byte model and the job's identity file)."""
     return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+def lm_params_from_arrays(cfg, tree: dict, device=None):
+    """The port's ``Transformer`` over the JAX package's LM params given as
+    a tree of numpy arrays (``{embed, final_norm, [unembed], prologue:
+    [layer], groups: [stacked layer a pattern position]}``, a layer being
+    ``{ln1, ln2, attn: {wq, wk, wv, wo}, ffn: {w_gate, w_up, w_down}}``).
+    ``groups[pi][...][g]`` becomes layer ``len(prologue) + g·len(pattern) +
+    pi``. bf16 arrays (ml_dtypes', told by their dtype's name) are carried
+    bit for bit through a uint16 view. A tree whose names, shapes or dtype
+    do not match ``cfg`` is refused."""
+    from repro_torch.models.transformer import Transformer, check_supported
+
+    check_supported(cfg)
+    device = resolve_device(device)
+    n_pro, n_pat, G = len(cfg.prologue), len(cfg.pattern), cfg.n_pattern_groups
+    if len(tree["prologue"]) != n_pro or len(tree["groups"]) != n_pat:
+        raise ValueError(
+            f"{cfg.name}: tree has {len(tree['prologue'])} prologue layers and "
+            f"{len(tree['groups'])} pattern positions, the config {n_pro} and "
+            f"{n_pat}")
+    flat = {k: tree[k] for k in ("embed", "final_norm", "unembed") if k in tree}
+
+    def put(i: int, d: dict, g: int | None = None) -> None:
+        for key, val in d.items():
+            for sub, a in (val.items() if isinstance(val, dict) else [("", val)]):
+                a = np.asarray(a)
+                if g is not None:
+                    if a.shape[:1] != (G,):
+                        raise ValueError(f"{cfg.name}: groups[{i - n_pro}]."
+                                         f"{key} stacks {a.shape[:1]}, the "
+                                         f"config {G} groups")
+                    a = a[g]
+                flat[f"layers.{i}.{key}" + (f".{sub}" if sub else "")] = a
+
+    for li, d in enumerate(tree["prologue"]):
+        put(li, d)
+    for pi, d in enumerate(tree["groups"]):
+        for g in range(G):
+            put(n_pro + g * n_pat + pi, d, g)
+    params = {}
+    want = str(cfg.dtype).removeprefix("torch.")
+    for name, a in flat.items():
+        a = np.asarray(a)
+        if a.dtype.name != want:
+            raise ValueError(f"{cfg.name}: {name} is {a.dtype.name}, "
+                             f"the config says {want}")
+        bf16 = a.dtype.name == "bfloat16"
+        t = torch.from_numpy(np.require(a.view(np.uint16) if bf16 else a,
+                                        requirements=["C", "W"]))
+        params[name] = (t.view(torch.bfloat16) if bf16 else t).to(device)
+    return Transformer(cfg, params)  # refuses other names or shapes

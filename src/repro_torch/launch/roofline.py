@@ -20,7 +20,8 @@ phase 14 times ``ProcessMesh.ring_shift`` under NCCL), and is None without
 one.
 
 The reference's ``collective_bytes_from_text`` parses XLA's HLO text and has
-no counterpart here. Its language-model branch waits for ROADMAP item 12.
+no counterpart here. Its language-model branch waits for ROADMAP item 12.4
+(the LM dry run).
 """
 
 from __future__ import annotations
@@ -30,6 +31,9 @@ HBM_BYTES_PER_S = 3.35e12
 #: float32 FLOP/s on the CUDA cores, outside the tensor cores (H100 SXM
 #: data sheet; it gives no int32 vector rate, and float32's stands in)
 F32_FLOPS_PER_S = 67e12
+#: bf16 FLOP/s on the tensor cores, dense, without sparsity (H100 SXM data
+#: sheet: 989 TFLOP/s); ``chip_smoke.py`` bounds the LM prefill by it
+BF16_DENSE_FLOPS_PER_S = 989e12
 #: bytes of device memory (H100 SXM data sheet: 80 GB)
 HBM_CAPACITY_BYTES = 80e9
 #: per source vertex, the state a message kind reads: values 4 B, degree
@@ -63,8 +67,8 @@ def roofline_terms(cfg, shape_info, *, flops, bytes_accessed,
     ``roofline_fraction``, where no ``link_bytes_per_s`` is given."""
     if cfg is not None:
         raise NotImplementedError(
-            "the language-model roofline waits for ROADMAP item 12 (the LM "
-            "scaffolding); the port prices GraphD cells only")
+            "the language-model roofline waits for ROADMAP item 12.4 (the LM "
+            "dry run); the port prices GraphD cells only")
     t_compute = flops / F32_FLOPS_PER_S
     t_memory = bytes_accessed / HBM_BYTES_PER_S
     t_collective = (collective_bytes / link_bytes_per_s

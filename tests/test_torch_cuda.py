@@ -4,7 +4,9 @@ in-memory modes and the recovery layer on the card against the CPU, the
 flat skip() prefix at a size where n*P passes 2^24, the multi-process
 launch on the card over both transports, the torch backend's ordered float
 sums (``kernels/run_sum``, and its accumulating form under the streamed
-fold and ``segment_sum``) bit for bit against the CPU, and the mesh.
+fold and ``segment_sum``) bit for bit against the CPU, the mesh, and LM
+serving (one full-width gemma3-12b pattern group in float32 against the
+CPU, greedy decoding run twice, the ring past the window).
 
 These tests need a CUDA device and skip without one. They import neither
 jax nor the JAX package, so they run on the GPU machine as they are:
@@ -950,3 +952,83 @@ def test_mesh_on_card(cuda, tmp_path, backend):
                             np.load(mine) as y:
                         for k in x.files:
                             np.testing.assert_array_equal(x[k], y[k])
+
+
+# ---------------------------------------------------------------------------
+# LM serving (no kernel of its own): the card against the CPU and itself
+# ---------------------------------------------------------------------------
+
+def _lm_logits(model, tokens, S, dec, device):
+    """Logits of a prefill over ``tokens[:, :S]`` and of ``dec`` decode
+    steps fed the next tokens, on fresh caches, stacked (1 + dec, B, V)."""
+    from repro_torch.serving.cache import make_caches
+    from repro_torch.serving.engine import decode_step, prefill
+
+    caches = make_caches(model.cfg, tokens.shape[0], S + dec, device=device)
+    out = [prefill(model, tokens[:, :S], caches)]
+    for p in range(S, S + dec):
+        out.append(decode_step(model, caches, tokens[:, p:p + 1], p))
+    return torch.stack(out)
+
+
+def test_lm_one_pattern_group_float32_card_equals_cpu(cuda):
+    """Smoke phase 16(a): gemma3-12b's first pattern group (5 local layers,
+    1 global) at full width and vocab in float32, TF32 off; a prefill of 16
+    and 4 decode steps on the card within 1e-4 of the largest |logit| of
+    the same weights on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.models.transformer import Transformer, init_params
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(get_config("gemma3-12b").with_groups(1),
+                              dtype=torch.float32)
+    card = init_params(cfg, 0, cuda)
+    host = Transformer(cfg, {k: v.cpu() for k, v in card.state_dict().items()})
+    toks = synthetic_batch(cfg, 0, 20, 2, device="cpu")["tokens"]
+    got = _lm_logits(card, toks.to(cuda), 16, 4, cuda).cpu()
+    want = _lm_logits(host, toks, 16, 4, "cpu")
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_lm_bf16_greedy_twice_identical_on_card(cuda):
+    """Two greedy runs of a full-width gemma3-12b pattern group in bf16,
+    past the window: the same tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.cache import make_caches
+    from repro_torch.serving.engine import greedy_generate
+
+    cfg = get_config("gemma3-12b").with_groups(1)
+    model = init_params(cfg, 1, cuda)
+    prompt = synthetic_batch(cfg, 0, 1030, 2, device=cuda)["tokens"]
+    runs = [greedy_generate(model, prompt,
+                            make_caches(cfg, 2, 1030 + 8, device=cuda), 8)
+            for _ in range(2)]
+    assert runs[0].shape == (2, 8) and runs[0].dtype == torch.int32
+    assert torch.equal(runs[0], runs[1])
+
+
+def test_lm_ring_decode_matches_forward_on_card(cuda):
+    """A reduced gemma3 with its window set to 8 and a 13-token prompt
+    (past the window, not a multiple of it), float32: the prefill and six
+    decode steps against ``forward`` over the same tokens on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.models.transformer import init_params
+
+    cfg = get_config("gemma3-12b").reduced()
+    cfg = dataclasses.replace(cfg, dtype=torch.float32, pattern=tuple(
+        dataclasses.replace(s, window=8) if s.window else s
+        for s in cfg.pattern))
+    model = init_params(cfg, 2, cuda)
+    toks = synthetic_batch(cfg, 0, 13 + 6, 2, device=cuda)["tokens"]
+    got = _lm_logits(model, toks, 13, 6, cuda)
+    want = model(toks)[:, 12:].transpose(0, 1)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())

@@ -1,0 +1,56 @@
+#!/usr/bin/env python3
+"""chip_smoke.py's phase 16 (LM serving, gemma3-12b) alone, on one GPU.
+
+    python3 tools/lm_phase.py [--seed 0]
+
+Narrows its own process to the first GPU the machine gives it, as the smoke
+does, prints the card's name and power limit, then runs phase 16(a) (one
+full-width pattern group in float32, the card against the CPU) and 16(b)
+(the full model in bf16 serving 4 requests of 1,100-token prompts). Needs
+no kernel build.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    sys.stdout.reconfigure(line_buffering=True)
+    import chip_smoke as cs
+
+    gpus = cs.machine_gpus()
+    if not gpus:
+        print("lm_phase: no GPU on this machine", file=sys.stderr)
+        return 1
+    os.environ["CUDA_VISIBLE_DEVICES"] = gpus[0]
+    import torch
+
+    if not torch.cuda.is_available():
+        print("lm_phase: no CUDA device", file=sys.stderr)
+        return 1
+    power = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(power)
+    t0 = time.perf_counter()
+    cs.phase_lm_group(args.seed, power)
+    cs.phase_lm_serve(args.seed, power)
+    print(f"phase 16 {time.perf_counter() - t0:.1f} s; card {power}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
