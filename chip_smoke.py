@@ -139,7 +139,24 @@ Phases, each of which ends the run non-zero on a failure:
     step's logits against ``forward`` over the same tokens (the bf16 gap
     printed; the same depth, width and tokens in float32 held within 1e-4
     of the largest |logit|), prefill and decode times beside their bounds,
-    peak device memory.
+    peak device memory;
+17. LM serving, the other layer kinds (MLA and MoE: deepseek-v2-lite-16b;
+    Mamba2: mamba2-2.7b; the hybrid: hymba-1.5b; the encoder-decoder:
+    whisper-large-v3; cross layers: llama-3.2-vision-90b): (a) each at full
+    width with the real vocab (the VLM at ``.reduced()``), one pattern
+    group plus the prologue (Whisper: 1 decoder and 1 encoder layer over
+    its 1,500 frames), in float32: a prefill of 16 tokens and 4 decode
+    steps (B = 2) on the card against the CPU within 1e-4 of the largest
+    |logit|; (b) each in bf16 at full width and depth (the VLM at 2 of its
+    20 pattern groups) serving 4 requests of 1,100-token prompts (Whisper:
+    64 tokens, its 448-position self-cache and 1,500 frames; the VLM 1,600
+    patches), 32 tokens each: two greedy runs with identical tokens, the
+    tokens changed by other media, the bf16 gap of decode to ``forward``
+    printed, a float32 run at the same width (full depth under 40 GB of
+    weights, else the most pattern groups under it) with decode within
+    1e-4 of the largest |logit| of ``forward`` (MoE: prefill against
+    ``forward`` over the prompt, whose expert capacity is the same),
+    prefill and decode times beside their bounds, peak device memory.
 
 It prints the launch counts of the main path's runs, and the per-kernel JSON
 line and the device line last. It needs a CUDA device and the CUDA toolkit.
@@ -2767,40 +2784,123 @@ def phase_dryrun(pg, profile: dict, link_bytes_per_s, power: str) -> None:
 
 
 # --------------------------------------------------------------------------
-# phase 16: LM serving, gemma3-12b
+# phases 16 and 17: LM serving
 # --------------------------------------------------------------------------
 
-LM_ARCH = "gemma3-12b"
+LM_ARCH = "gemma3-12b"  # phase 16
 LM_F32_BAR = 1e-4  # the card against the CPU, of the largest |logit|
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 1100, 32  # the prompt passes the window
 
+#: phase 17's archs: MLA + MoE, Mamba2, the hybrid, the encoder-decoder
+#: and the VLM's cross layers
+LM_KIND_ARCHS = ("deepseek-v2-lite-16b", "mamba2-2.7b", "hymba-1.5b",
+                 "whisper-large-v3", "llama-3.2-vision-90b")
+LM_VLM = "llama-3.2-vision-90b"
+LM_VLM_GROUPS = 2  # 17(b): 10 of its 100 layers; 87.7 B do not fit a card
+LM_WHISPER_PROMPT = 64
+LM_WHISPER_MAX_LEN = 448  # the decoder's context: its self-cache length
+LM_F32_WEIGHT_LIMIT = 40e9  # 17(b)'s float32 check: weight bytes under this
+#: why an arch's bf16 decode-against-forward gap is printed and not held,
+#: where it was measured
+LM_BF16_NOTE = {LM_ARCH: ": bf16 rounding alone moves this model's logits "
+                         "0.27-0.34 from float32's, tools/lm_precision.py"}
 
-def lm_logits(model, tokens, S: int, dec: int, device) -> list:
-    """The logits of a prefill over ``tokens[:, :S]`` and of ``dec`` decode
-    steps fed ``tokens[:, S:S + dec]``, on fresh caches."""
+
+def lm_logits(model, tokens, S: int, dec: int, device, media=None,
+              max_len: int | None = None, drops: list | None = None) -> list:
+    """The logits of a prefill over ``tokens[:, :S]`` (and ``media``) and
+    of ``dec`` decode steps fed ``tokens[:, S:S + dec]``, on fresh caches
+    of ``max_len`` positions (``S + dec`` by default). With ``drops``, each
+    call's MoE drop fractions (one a MoE layer) are appended."""
+    import torch
+
     from repro_torch.serving.cache import make_caches
     from repro_torch.serving.engine import decode_step, prefill
 
-    caches = make_caches(model.cfg, tokens.shape[0], S + dec, device=device)
-    out = [prefill(model, tokens[:, :S], caches)]
+    def step(logits):
+        if drops is not None:
+            drops.append(torch.stack([d for _, d in model.moe_stats()]))
+        return logits
+
+    caches = make_caches(model.cfg, tokens.shape[0], max_len or S + dec,
+                         device=device)
+    out = [step(prefill(model, tokens[:, :S], caches, media))]
     for p in range(S, S + dec):
-        out.append(decode_step(model, caches, tokens[:, p:p + 1], p))
+        out.append(step(decode_step(model, caches, tokens[:, p:p + 1], p)))
     return out
 
 
-def lm_prefill_flops(cfg, B: int, S: int) -> float:
-    """What a prefill must compute: two operations a weight a token in the
-    layers, the attention's QK and PV over the (query, key) pairs the causal
-    or windowed mask keeps, and the last position's float32 logits."""
+def drop_counts(drops: list, B: int, S: int, topk: int) -> list:
+    """``lm_logits``'s drop fractions as the copies they stand for, a list
+    a call (the prefill's B·S·k copies, then a decode step's B·k) of one
+    count a MoE layer."""
+    return [[round(float(d) * B * (S if i == 0 else 1) * topk) for d in call]
+            for i, call in enumerate(drops)]
+
+
+def moved_media(media):
+    """The other media of the media check: ``media * 3 + 1``."""
+    return media * 3 + 1
+
+
+def lm_prefill_flops(cfg, B: int, S: int, n_media: int = 0) -> float:
+    """What a prefill of B × S tokens must compute, layer by layer: two
+    operations a weight a token it meets, QK and PV over the (query, key)
+    pairs each mask keeps (MLA's keys are hd + rd wide), the media or
+    encoder frames' K/V projections and cross pairs, the encoder over the
+    frames, the SSD scan's chunked products, the MoE experts over their
+    whole (E, C, d) buffers (the reference's function runs all E), and the
+    last position's float32 logits."""
+    from repro_torch.models.ssm import pick_chunk
     from repro_torch.models.transformer import layer_specs
 
-    layer_params = cfg.n_params() - cfg.vocab * cfg.d_model * (
-        1 if cfg.tie_embeddings else 2)
-    pairs = sum(sum(min(p + 1, spec.window or S) for p in range(S))
-                for spec in layer_specs(cfg))
-    return (2 * B * S * layer_params
-            + 4 * B * cfg.n_heads * cfg.head_dim * pairs
-            + 2 * B * cfg.d_model * cfg.vocab)
+    d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    T, tok = n_media, B * S
+
+    def pairs(window):
+        return B * sum(min(p + 1, window or S) for p in range(S))
+
+    def attn(n_tok, n_pairs, kv_tok):
+        return (2 * n_tok * 2 * d * H * hd + 2 * kv_tok * 2 * d * Hkv * hd
+                + 4 * H * hd * n_pairs)
+
+    def ssm():
+        di, N, nh, K = (cfg.d_ssm_inner, cfg.ssm_state, cfg.n_ssm_heads,
+                        cfg.ssm_conv)
+        L, shd = pick_chunk(S, cfg.ssm_chunk), cfg.ssm_head_dim
+        return (2 * tok * (d * (2 * di + 2 * N + nh) + di * d)
+                + 2 * tok * K * (di + 2 * N)
+                + 2 * tok * (L * N + nh * L * shd + 2 * nh * shd * N))
+
+    def ffn(spec):
+        if spec.ffn == "none":
+            return 0
+        if spec.ffn == "dense":
+            return 2 * tok * 3 * d * cfg.d_ff
+        E, f = cfg.n_experts, cfg.moe_dff
+        C = int(cfg.capacity_factor * cfg.topk * tok / E) + 1
+        return (2 * tok * d * E + 2 * E * C * 3 * d * f
+                + 2 * tok * 3 * d * f * cfg.n_shared_experts)
+
+    total = 2 * B * d * cfg.vocab
+    for spec in layer_specs(cfg):
+        if spec.kind in ("attn", "hybrid"):
+            total += attn(tok, pairs(spec.window), tok)
+        if spec.kind in ("ssm", "hybrid"):
+            total += ssm()
+        if spec.kind == "cross":
+            total += attn(tok, B * S * T, B * T)
+        if spec.kind == "mla":
+            r, rd = cfg.mla_kv_lora, cfg.mla_rope_dim
+            total += (2 * tok * (d * H * (hd + rd) + d * (r + rd) + H * hd * d
+                                 + r * H * 2 * hd)
+                      + 2 * H * (2 * hd + rd) * pairs(None))
+        if cfg.n_enc_layers:
+            total += attn(tok, B * S * T, B * T)
+        total += ffn(spec)
+    for _ in range(cfg.n_enc_layers):
+        total += attn(B * T, B * T * T, B * T) + 2 * B * T * 3 * d * cfg.d_ff
+    return total
 
 
 def profile_decode_step(model, caches, token, pos: int, top: int = 8) -> dict:
@@ -2826,11 +2926,21 @@ def profile_decode_step(model, caches, token, pos: int, top: int = 8) -> dict:
                 top=[(op[:90], c, dt / 1e3) for op, (c, dt) in rows])
 
 
-def phase_lm_group(seed: int, power: str) -> None:
-    """16(a): one pattern group of gemma3-12b (5 local layers, 1 global) at
-    full width with the real vocab, in float32, TF32 off: a prefill of 16
-    tokens and 4 decode steps (B = 2) on the card against the same weights
-    on the CPU, within 1e-4 of the largest |logit|."""
+def weight_bytes_f32(cfg) -> int:
+    from repro_torch.models.transformer import param_shapes
+
+    return 4 * sum(int(np.prod(s)) for s in param_shapes(cfg).values())
+
+
+def phase_lm_group(label: str, archs, seed: int, power: str) -> None:
+    """16(a) and 17(a): each arch at full width with the real vocab (the
+    VLM at ``.reduced()``: one group at its width is 25.5 GB of float32
+    host memory), the depth cut to one pattern group plus the prologue
+    (Whisper: 1 decoder and 1 encoder layer, its 1,500 frames), in float32,
+    TF32 off: a prefill of 16 tokens and 4 decode steps (B = 2) on the card
+    against the same weights and media on the CPU, within 1e-4 of the
+    largest |logit|; for a MoE arch, each call's dropped copies equal layer
+    by layer too: the same function runs on both sides."""
     import dataclasses
 
     import torch
@@ -2838,54 +2948,105 @@ def phase_lm_group(seed: int, power: str) -> None:
     from repro_torch.data.tokens import synthetic_batch
     from repro_torch.models.transformer import Transformer, init_params
 
-    t0 = time.perf_counter()
     check(not torch.backends.cuda.matmul.allow_tf32,
-          "LM: TF32 is on for float32 matmuls")
-    cfg = dataclasses.replace(get_config(LM_ARCH).with_groups(1),
-                              dtype=torch.float32)
-    card = init_params(cfg, seed, "cuda")
-    host = Transformer(cfg, {k: v.cpu() for k, v in card.state_dict().items()})
-    toks = synthetic_batch(cfg, 0, 20, 2, device="cpu")["tokens"]
-    got = torch.stack(lm_logits(card, toks.cuda(), 16, 4, "cuda")).cpu()
-    want = torch.stack(lm_logits(host, toks, 16, 4, "cpu"))
-    del card, host
-    err, top = max_abs_err(got, want), float(want.abs().max())
-    check(bool(torch.isfinite(got).all()), "LM one group: non-finite logits")
-    print(f"LM 16(a): {cfg.name} (6 layers, d_model {cfg.d_model}, vocab "
-          f"{cfg.vocab}) float32, B 2, prompt 16 + 4 decode steps: card "
-          f"against CPU max |diff| {err:.6g} of max |logit| {top:.6g} "
-          f"({err / top:.3g}, bar {LM_F32_BAR:g}); "
-          f"{time.perf_counter() - t0:.1f} s; card {power}")
-    check(err <= LM_F32_BAR * top,
-          f"LM one group: card against CPU {err:.6g} > {LM_F32_BAR} x {top:.6g}")
+          f"LM {label}: TF32 is on for float32 matmuls")
+    for arch in archs:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        cfg = cfg.reduced() if arch == LM_VLM else cfg.with_groups(1)
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+        card = init_params(cfg, seed, "cuda")
+        host = Transformer(cfg, {k: v.cpu() for k, v in
+                                 card.state_dict().items()})
+        batch = synthetic_batch(cfg, 0, 20, 2, device="cpu")
+        toks, media = batch["tokens"], batch.get("media")
+        moe = cfg.n_experts > 0
+        gdrop, wdrop = ([], []) if moe else (None, None)
+        got = torch.stack(lm_logits(
+            card, toks.cuda(), 16, 4, "cuda",
+            None if media is None else media.cuda(), drops=gdrop)).cpu()
+        want = torch.stack(lm_logits(host, toks, 16, 4, "cpu", media,
+                                     drops=wdrop))
+        del card, host
+        torch.cuda.empty_cache()
+        err, top = max_abs_err(got, want), float(want.abs().max())
+        check(bool(torch.isfinite(got).all()),
+              f"LM {label} {arch}: non-finite logits")
+        if moe:
+            gcount = drop_counts(gdrop, 2, 16, cfg.topk)
+            wcount = drop_counts(wdrop, 2, 16, cfg.topk)
+        drops = ("" if not moe else
+                 f"; MoE dropped copies a call and layer: card {gcount}, "
+                 f"CPU {wcount}")
+        print(f"LM {label}: {cfg.name} ({cfg.n_layers} layers"
+              + (f" + {cfg.n_enc_layers} encoder" if cfg.n_enc_layers else "")
+              + f", d_model {cfg.d_model}, vocab {cfg.vocab}"
+              + (f", {media.shape[1]} media" if media is not None else "")
+              + f") float32, B 2, prompt 16 + 4 decode steps: card against "
+              f"CPU max |diff| {err:.6g} of max |logit| {top:.6g} "
+              f"({err / top:.3g}, bar {LM_F32_BAR:g}){drops}; "
+              f"{time.perf_counter() - t0:.1f} s; card {power}")
+        check(err <= LM_F32_BAR * top,
+              f"LM {label} {arch}: card against CPU {err:.6g} > {LM_F32_BAR} "
+              f"x {top:.6g}")
+        if moe:
+            check(gcount == wcount,
+                  f"LM {label} {arch}: the card's MoE layers dropped other "
+                  f"copies than the CPU's: {gcount} against {wcount}")
 
 
-def phase_lm_serve(seed: int, power: str) -> dict:
-    """16(b): gemma3-12b at full width and depth (48 layers, bf16 weights
-    drawn from ``seed``) serving 4 requests of 1,100-token prompts, past the
-    1,024 window and not a multiple of it, 32 tokens each. Greedy twice
-    (identical tokens), then a prefill and 31 decode steps between CUDA
-    events (the same tokens again), the times beside their bounds, one
-    decode step under the profiler, and each step's logits against
-    ``forward`` over the same tokens: printed in bf16, whose own rounding
-    moves logits that far (``tools/lm_precision.py``), and held in float32
-    (the same depth, width and tokens, weights drawn from ``seed`` in
-    float32) within 1e-4 of the largest |logit|."""
+def _f32_cut(cfg, limit: float | None):
+    """The serving check's float32 config: full depth when ``limit`` is
+    None or its weights are under ``limit`` bytes, else the most whole
+    pattern groups under it."""
     import dataclasses
 
+    import torch
+
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    if limit is None or weight_bytes_f32(f32) < limit:
+        return f32, "full depth"
+    k = max(g for g in range(1, cfg.n_pattern_groups)
+            if weight_bytes_f32(f32.with_groups(g)) < limit)
+    cut = f32.with_groups(k)
+    return cut, (f"{k} of {cfg.n_pattern_groups} pattern groups "
+                 f"({cut.n_layers} layers; {weight_bytes_f32(f32)} float32 "
+                 f"bytes at full depth)")
+
+
+def phase_lm_serve(label: str, arch: str, seed: int, power: str,
+                   f32_limit: float | None = LM_F32_WEIGHT_LIMIT) -> dict:
+    """16(b) and 17(b) for one arch at full width in bf16 (weights drawn
+    from ``seed``): 4 requests of 1,100-token prompts, past a 1,024 window
+    and not a multiple of it (Whisper: 64 tokens, a 448-position self-cache
+    and 1,500 frames; the VLM: 1,600 patches, at 2 of its 20 pattern
+    groups), 32 tokens each. Two greedy runs with identical tokens, then a
+    prefill and 31 decode steps between CUDA events (the same tokens
+    again), the times beside their bounds, one decode step profiled, and
+    the decode's logits against ``forward`` over the same tokens (printed
+    in bf16); for a media arch, the tokens under other media differ. Then
+    the float32 check at the same width (``_f32_cut``'s depth under
+    ``f32_limit``): decode against ``forward`` within 1e-4 of the largest
+    |logit|, or for MoE prefill against ``forward`` over the prompt
+    (decode's gap and drop fraction printed)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import synthetic_batch
     from repro_torch.launch.roofline import (
         BF16_DENSE_FLOPS_PER_S, HBM_BYTES_PER_S,
     )
-    from repro_torch.models.transformer import init_params
+    from repro_torch.models.transformer import init_params, uses_media
     from repro_torch.serving.cache import cache_bytes, make_caches
     from repro_torch.serving.engine import decode_step, greedy_generate, prefill
 
     t0 = time.perf_counter()
-    cfg = get_config(LM_ARCH)
-    B, S, G = LM_BATCH, LM_PROMPT, LM_GEN
+    cfg = get_config(arch)
+    if arch == LM_VLM:
+        cfg = cfg.with_groups(LM_VLM_GROUPS)
+    whisper = cfg.n_enc_layers > 0
+    B, G = LM_BATCH, LM_GEN
+    S = LM_WHISPER_PROMPT if whisper else LM_PROMPT
+    max_len = LM_WHISPER_MAX_LEN if whisper else S + G
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -2894,29 +3055,35 @@ def phase_lm_serve(seed: int, power: str) -> dict:
     t_init = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
     weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    # the analytic count leaves out the final norm's d_model
-    check(n_params == cfg.n_params() + cfg.d_model,
-          f"LM: {n_params} parameters, the config counts {cfg.n_params()} "
-          f"and the final norm's {cfg.d_model}")
-    prompt = synthetic_batch(cfg, 0, S, B, device="cuda")["tokens"]
+    batch = synthetic_batch(cfg, 0, S, B, device="cuda")
+    prompt, media = batch["tokens"], batch.get("media")
+    check((media is not None) == uses_media(cfg), f"LM {arch}: media")
+    n_media = 0 if media is None else media.shape[1]
 
     runs = []
     for _ in range(2):
-        caches = make_caches(cfg, B, S + G, device="cuda")
+        caches = make_caches(cfg, B, max_len, device="cuda")
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        runs.append(greedy_generate(model, prompt, caches, G))
+        runs.append(greedy_generate(model, prompt, caches, G, media=media))
         torch.cuda.synchronize()
         gen_s = time.perf_counter() - t1
-    check(torch.equal(runs[0], runs[1]), "LM: two greedy runs differ")
+    check(torch.equal(runs[0], runs[1]), f"LM {arch}: two greedy runs differ")
     tokens = runs[0]
     c_bytes = cache_bytes(caches)
+    moved = None
+    if media is not None:
+        caches = make_caches(cfg, B, max_len, device="cuda")
+        other = greedy_generate(model, prompt, caches, G,
+                                media=moved_media(media))
+        moved = int((other != tokens).sum())
+        check(moved > 0, f"LM {arch}: the tokens do not change with the media")
 
     # the same loop between CUDA events, keeping each step's logits
-    caches = make_caches(cfg, B, S + G, device="cuda")
+    caches = make_caches(cfg, B, max_len, device="cuda")
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(G + 1)]
     ev[0].record()
-    logits = [prefill(model, prompt, caches)]
+    logits = [prefill(model, prompt, caches, media)]
     ev[1].record()
     picked = [logits[0].argmax(-1, keepdim=True).to(torch.int32)]
     for i in range(1, G):
@@ -2927,27 +3094,38 @@ def phase_lm_serve(seed: int, power: str) -> dict:
     prefill_ms = ev[0].elapsed_time(ev[1])
     step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(1, G)]
     check(torch.equal(torch.cat(picked, 1), tokens),
-          "LM: the timed loop's tokens differ from greedy_generate's")
+          f"LM {arch}: the timed loop's tokens differ from greedy_generate's")
     prof = profile_decode_step(model, caches, picked[-1], S + G - 1)
     dec = torch.stack(logits, 1)  # (B, G, vocab)
     del logits
     full = torch.cat([prompt, tokens[:, :-1]], 1)  # (B, S + G - 1)
-    fwd = model(full)[:, S - 1:]
+    fwd = model(full, media)[:, S - 1:]
     check(bool(torch.isfinite(dec).all()) and bool(torch.isfinite(fwd).all()),
-          "LM: non-finite logits")
+          f"LM {arch}: non-finite logits")
     gap, top = max_abs_err(dec, fwd), float(fwd.abs().max())
     peak = torch.cuda.max_memory_allocated()
     del fwd, dec, model, caches
     torch.cuda.empty_cache()
 
-    # the decode path in float32 at the same size: decode against forward
+    # the float32 check at the same width
     t1 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    cfg32, cut = _f32_cut(cfg, f32_limit)
     model32 = init_params(cfg32, seed, "cuda")
-    dec32 = torch.stack(lm_logits(model32, full, S, G - 1, "cuda"), 1)
-    fwd32 = model32(full)[:, S - 1:]
+    media32 = None if media is None else media.float()
+    moe = cfg.n_experts > 0
+    drop32 = [] if moe else None
+    dec32 = torch.stack(lm_logits(model32, full, S, G - 1, "cuda", media32,
+                                  max_len, drop32), 1)
+    fwd32 = model32(full, media32)[:, S - 1:]
     gap32, top32 = max_abs_err(dec32, fwd32), float(fwd32.abs().max())
+    if moe:  # prefill against forward over the prompt alone: the same T
+        pre = model32(prompt, media32)[:, -1]
+        held, held_top = max_abs_err(dec32[:, 0], pre), float(pre.abs().max())
+        drop_dec = float(torch.stack(drop32[1:]).mean())
+        del pre
+    else:
+        held, held_top, drop_dec = gap32, top32, None
     peak32 = torch.cuda.max_memory_allocated()
     del model32, dec32, fwd32
     torch.cuda.empty_cache()
@@ -2955,48 +3133,93 @@ def phase_lm_serve(seed: int, power: str) -> dict:
 
     median_ms = statistics.median(step_ms)
     decode_bound_ms = (weight_bytes + c_bytes) / HBM_BYTES_PER_S * 1e3
-    flops = lm_prefill_flops(cfg, B, S)
+    flops = lm_prefill_flops(cfg, B, S, n_media)
     prefill_bound_ms = max(flops / BF16_DENSE_FLOPS_PER_S,
                            weight_bytes / HBM_BYTES_PER_S) * 1e3
     out = dict(
-        params=n_params, weight_bytes=weight_bytes, cache_bytes=c_bytes,
-        prefill_ms=prefill_ms, prefill_tok_s=B * S / prefill_ms * 1e3,
-        decode_ms=median_ms, decode_tok_s=B / median_ms * 1e3,
-        decode_ms_min=min(step_ms), decode_ms_max=max(step_ms),
-        greedy_s=gen_s, decode_bound_ms=decode_bound_ms,
-        prefill_bound_ms=prefill_bound_ms, prefill_flops=flops,
-        peak_bytes=peak, base_bytes=base, bf16_gap=gap, bf16_max_logit=top,
-        f32_gap=gap32, f32_max_logit=top32, f32_peak_bytes=peak32,
-        f32_seconds=f32_s, profile=prof, init_s=t_init,
+        arch=cfg.name, layers=cfg.n_layers, enc_layers=cfg.n_enc_layers,
+        prompt=S, media=n_media, params=n_params, weight_bytes=weight_bytes,
+        cache_bytes=c_bytes, prefill_ms=prefill_ms,
+        prefill_tok_s=B * S / prefill_ms * 1e3, decode_ms=median_ms,
+        decode_tok_s=B / median_ms * 1e3, decode_ms_min=min(step_ms),
+        decode_ms_max=max(step_ms), greedy_s=gen_s,
+        decode_bound_ms=decode_bound_ms, prefill_bound_ms=prefill_bound_ms,
+        prefill_flops=flops, peak_bytes=peak, base_bytes=base,
+        tokens_moved_by_media=moved, bf16_gap=gap, bf16_max_logit=top,
+        f32_cut=cut, f32_gap=gap32, f32_max_logit=top32, f32_held=held,
+        f32_held_max_logit=held_top, f32_decode_drop=drop_dec,
+        f32_peak_bytes=peak32, f32_seconds=f32_s, profile=prof, init_s=t_init,
         seconds=time.perf_counter() - t0)
-    print("LM 16(b) " + json.dumps(out))
-    print(f"LM 16(b): {cfg.name} {cfg.n_layers} layers bf16, {n_params} "
-          f"parameters, weights {weight_bytes} bytes, caches {c_bytes} bytes "
-          f"(B {B}, {S} + {G} positions); two greedy runs identical "
-          f"({gen_s:.3f} s the second, {B * G / gen_s:.1f} tok/s); prefill "
-          f"{prefill_ms:.3f} ms ({B * S / prefill_ms * 1e3:.0f} tok/s) against "
-          f"a bound of {prefill_bound_ms:.3f} ms ({flops:.6g} operations at "
-          f"the data sheet's dense bf16 rate); decode {median_ms:.3f} ms a "
-          f"token, median of {G - 1} (min {min(step_ms):.3f}, max "
-          f"{max(step_ms):.3f}; {B / median_ms * 1e3:.1f} tok/s) against a "
-          f"bound of {decode_bound_ms:.3f} ms (weight and cache bytes at "
-          f"3.35e12 bytes/s); one decode step profiled: {prof['device_ops']} "
-          f"device ops, device busy {prof['busy_ms']:.3f} ms of "
+    print(f"LM {label} " + json.dumps(out))
+    print(f"LM {label}: {cfg.name} {cfg.n_layers} layers"
+          + (f" + {cfg.n_enc_layers} encoder" if whisper else "")
+          + f" bf16, {n_params} parameters, weights {weight_bytes} bytes, "
+          f"caches {c_bytes} bytes (B {B}, {S} + {G} positions"
+          + (f", {n_media} media" if n_media else "")
+          + f"); two greedy runs identical ({gen_s:.3f} s the second, "
+          f"{B * G / gen_s:.1f} tok/s)"
+          + (f", {moved} of {B * G} tokens changed with the media"
+             if moved is not None else "")
+          + f"; prefill {prefill_ms:.3f} ms ({B * S / prefill_ms * 1e3:.0f} "
+          f"tok/s) against a bound of {prefill_bound_ms:.3f} ms ({flops:.6g} "
+          f"operations at the data sheet's dense bf16 rate); decode "
+          f"{median_ms:.3f} ms a token, median of {G - 1} (min "
+          f"{min(step_ms):.3f}, max {max(step_ms):.3f}; "
+          f"{B / median_ms * 1e3:.1f} tok/s) against a bound of "
+          f"{decode_bound_ms:.3f} ms (weight and cache bytes at 3.35e12 "
+          f"bytes/s); one decode step profiled: {prof['device_ops']} device "
+          f"ops, device busy {prof['busy_ms']:.3f} ms of "
           f"{prof['wall_ms']:.3f} ms (idle {prof['idle']:.4f}); peak device "
           f"memory {peak} bytes ({base} before); weights drawn in "
           f"{t_init:.1f} s; card {power}")
     for op, count, ms in prof["top"]:
         print(f"LM profile:   {ms:8.3f} ms  x{count:4d}  {op}")
-    print(f"LM 16(b): decode against forward, bf16 max |diff| {gap:.6g} "
-          f"(max |logit| {top:.6g}; printed, not held: bf16 rounding alone "
-          f"moves this model's logits 0.27-0.34 from float32's, "
-          f"tools/lm_precision.py); float32 max |diff| {gap32:.6g} of max "
-          f"|logit| {top32:.6g} ({gap32 / top32:.3g}, bar {LM_F32_BAR:g}; "
-          f"peak device memory {peak32} bytes, {f32_s:.1f} s); "
+    what = ("prefill against forward over the prompt (the same tokens, so "
+            "the same expert capacity)" if moe else "decode against forward")
+    print(f"LM {label}: {cfg.name} decode against forward, bf16 max |diff| "
+          f"{gap:.6g} (max |logit| {top:.6g}; printed, not held"
+          f"{LM_BF16_NOTE.get(arch, '')}); float32 at {cut}: {what} max "
+          f"|diff| {held:.6g} of max |logit| {held_top:.6g} "
+          f"({held / held_top:.3g}, bar {LM_F32_BAR:g})"
+          + (f"; decode against forward {gap32:.6g} of {top32:.6g} "
+             f"(printed: a decode step's expert capacity is 1), decode drop "
+             f"fraction {drop_dec:.4f}" if moe else "")
+          + f" (peak device memory {peak32} bytes, {f32_s:.1f} s); "
           f"{out['seconds']:.1f} s; card {power}")
-    check(gap32 <= LM_F32_BAR * top32,
-          f"LM: float32 decode against forward {gap32:.6g} > {LM_F32_BAR} x "
-          f"{top32:.6g}")
+    check(held <= LM_F32_BAR * held_top,
+          f"LM {arch}: float32 {what} {held:.6g} > {LM_F32_BAR} x "
+          f"{held_top:.6g}")
+    return out
+
+
+def phase_lm(seed: int, power: str) -> dict:
+    """Phase 16: gemma3-12b, 16(a) and 16(b); its float32 check runs at
+    full depth (47.1 GB of weights, the card's only tenant by then), and
+    its parameters must be the config's count and the final norm's."""
+    from repro_torch.configs import get_config
+
+    phase_lm_group("16(a)", (LM_ARCH,), seed, power)
+    out = phase_lm_serve("16(b)", LM_ARCH, seed, power, f32_limit=None)
+    cfg = get_config(LM_ARCH)
+    # the analytic count leaves out the final norm's d_model
+    check(out["params"] == cfg.n_params() + cfg.d_model,
+          f"LM: {out['params']} parameters, the config counts "
+          f"{cfg.n_params()} and the final norm's {cfg.d_model}")
+    return out
+
+
+def phase_lm_kinds(seed: int, power: str) -> list:
+    """Phase 17: 17(a), then 17(b) arch by arch, each model freed before
+    the next."""
+    import torch
+
+    t0 = time.perf_counter()
+    phase_lm_group("17(a)", LM_KIND_ARCHS, seed, power)
+    out = []
+    for arch in LM_KIND_ARCHS:
+        out.append(phase_lm_serve("17(b)", arch, seed, power))
+        torch.cuda.empty_cache()
+    print(f"LM phase 17: {time.perf_counter() - t0:.1f} s; card {power}")
     return out
 
 
@@ -3087,9 +3310,10 @@ def main(argv=None) -> int:
     lap("15")
     del pg, g, modes  # phase 16 holds up to 54 GB of the card
     torch.cuda.empty_cache()
-    phase_lm_group(args.seed, built["power"])
-    phase_lm_serve(args.seed, built["power"])
+    phase_lm(args.seed, built["power"])
     lap("16")
+    phase_lm_kinds(args.seed, built["power"])
+    lap("17")
     for name, k in kernels.items():
         k["launches"] = launches[name]
         k["mesh_launches_per_rank"] = mesh["launches_per_rank"][name]

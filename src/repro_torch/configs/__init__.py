@@ -1,6 +1,5 @@
 """Architecture registry: the 10 assigned configs, copies of the JAX
-package's ``configs/`` (config files are data; the serving slice runs the
-four whose layers are all ``attn`` with a dense FFN)."""
+package's ``configs/`` (config files are data; serving runs all ten)."""
 
 from repro_torch.configs import (
     command_r_plus_104b,

@@ -56,15 +56,17 @@ def numpy_dtype(dtype: torch.dtype) -> np.dtype:
 def lm_params_from_arrays(cfg, tree: dict, device=None):
     """The port's ``Transformer`` over the JAX package's LM params given as
     a tree of numpy arrays (``{embed, final_norm, [unembed], prologue:
-    [layer], groups: [stacked layer a pattern position]}``, a layer being
-    ``{ln1, ln2, attn: {wq, wk, wv, wo}, ffn: {w_gate, w_up, w_down}}``).
-    ``groups[pi][...][g]`` becomes layer ``len(prologue) + g·len(pattern) +
-    pi``. bf16 arrays (ml_dtypes', told by their dtype's name) are carried
-    bit for bit through a uint16 view. A tree whose names, shapes or dtype
-    do not match ``cfg`` is refused."""
-    from repro_torch.models.transformer import Transformer, check_supported
+    [layer], groups: [stacked layer a pattern position], [encoder: stacked
+    layer, enc_final_norm]}``, a layer a dict of leaves and of groups of
+    leaves: ``ln1``, ``attn: {wq, ...}``, ``ssm: {in_proj, ...}``,
+    ``ffn: {...}``, ...). ``groups[pi][...][g]`` becomes layer
+    ``len(prologue) + g·len(pattern) + pi``, ``encoder[...][j]`` encoder
+    layer j. bf16 arrays (ml_dtypes', told by their dtype's name) are
+    carried bit for bit through a uint16 view. A tree whose names, shapes or
+    dtypes do not match ``cfg`` is refused: every leaf is ``cfg.dtype`` but
+    those the reference keeps in float32 (``param_dtype``)."""
+    from repro_torch.models.transformer import Transformer, param_dtype
 
-    check_supported(cfg)
     device = resolve_device(device)
     n_pro, n_pat, G = len(cfg.prologue), len(cfg.pattern), cfg.n_pattern_groups
     if len(tree["prologue"]) != n_pro or len(tree["groups"]) != n_pat:
@@ -72,29 +74,35 @@ def lm_params_from_arrays(cfg, tree: dict, device=None):
             f"{cfg.name}: tree has {len(tree['prologue'])} prologue layers and "
             f"{len(tree['groups'])} pattern positions, the config {n_pro} and "
             f"{n_pat}")
-    flat = {k: tree[k] for k in ("embed", "final_norm", "unembed") if k in tree}
+    flat = {k: tree[k] for k in ("embed", "final_norm", "unembed",
+                                 "enc_final_norm") if k in tree}
 
-    def put(i: int, d: dict, g: int | None = None) -> None:
+    def put(pre: str, d: dict, g: int | None = None, n: int = G,
+            where: str = "") -> None:
         for key, val in d.items():
             for sub, a in (val.items() if isinstance(val, dict) else [("", val)]):
                 a = np.asarray(a)
                 if g is not None:
-                    if a.shape[:1] != (G,):
-                        raise ValueError(f"{cfg.name}: groups[{i - n_pro}]."
-                                         f"{key} stacks {a.shape[:1]}, the "
-                                         f"config {G} groups")
+                    if a.shape[:1] != (n,):
+                        raise ValueError(f"{cfg.name}: {where}.{key} stacks "
+                                         f"{a.shape[:1]}, the config {n}")
                     a = a[g]
-                flat[f"layers.{i}.{key}" + (f".{sub}" if sub else "")] = a
+                flat[pre + key + (f".{sub}" if sub else "")] = a
 
     for li, d in enumerate(tree["prologue"]):
-        put(li, d)
+        put(f"layers.{li}.", d)
     for pi, d in enumerate(tree["groups"]):
         for g in range(G):
-            put(n_pro + g * n_pat + pi, d, g)
+            put(f"layers.{n_pro + g * n_pat + pi}.", d, g,
+                where=f"groups[{pi}]")
+    if "encoder" in tree:
+        for j in range(cfg.n_enc_layers):
+            put(f"encoder.{j}.", tree["encoder"], j, cfg.n_enc_layers,
+                "encoder")
     params = {}
-    want = str(cfg.dtype).removeprefix("torch.")
     for name, a in flat.items():
         a = np.asarray(a)
+        want = str(param_dtype(cfg, name)).removeprefix("torch.")
         if a.dtype.name != want:
             raise ValueError(f"{cfg.name}: {name} is {a.dtype.name}, "
                              f"the config says {want}")

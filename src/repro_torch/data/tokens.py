@@ -18,7 +18,7 @@ def synthetic_batch(cfg, step: int, seq_len: int, global_batch: int,
                     device=None) -> dict[str, torch.Tensor]:
     """Counter-based batch: tokens[i, t] = f(step, i, t), reproducible at any
     restart point without replaying the stream. ``media`` (cfg.dtype) is
-    drawn as the reference draws it; serving refuses it (ROADMAP 12.1b)."""
+    drawn as the reference draws it."""
     device = resolve_device(device)
     rng = np.random.default_rng(np.uint64(0xC0FFEE) + np.uint64(step))
     tokens = rng.integers(

@@ -1,8 +1,13 @@
 """Serving launcher: batched prefill + greedy decode, on the card unless
-``--device`` says otherwise.
+``--device`` says otherwise, for any of the ten archs.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \
         --reduced --batch 4 --prompt-len 32 --gen 16 [--device cpu] [--seed 0]
+
+The archs that read media (llama-3.2-vision-90b's image patches,
+whisper-large-v3's audio frames) get ``synthetic_batch``'s. Whisper's
+decoder caches hold 448 positions, its context, so its prompt and generated
+tokens must fit in them.
 """
 
 from __future__ import annotations
@@ -15,9 +20,12 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.data.tokens import synthetic_batch
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import init_params
+from repro_torch.models.transformer import init_params, uses_media
 from repro_torch.serving.cache import cache_bytes, make_caches
 from repro_torch.serving.engine import greedy_generate
+
+#: Whisper's decoder context: the length of its self-attention caches
+DECODER_MAX_LEN = 448
 
 
 def main(argv=None):
@@ -36,12 +44,19 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    model = init_params(cfg, args.seed, device)
     max_len = args.prompt_len + args.gen
+    if cfg.n_enc_layers:
+        if max_len > DECODER_MAX_LEN:
+            ap.error(f"{cfg.name}: --prompt-len + --gen = {max_len} passes "
+                     f"the decoder's {DECODER_MAX_LEN} positions")
+        max_len = DECODER_MAX_LEN
+    model = init_params(cfg, args.seed, device)
     caches = make_caches(cfg, args.batch, max_len=max_len, device=device)
     print(f"[serve] {cfg.name}: cache {cache_bytes(caches)/2**20:.1f} MiB "
           f"for B={args.batch} L={max_len}")
     batch = synthetic_batch(cfg, 0, args.prompt_len, args.batch, device=device)
+    if uses_media(cfg):
+        print(f"[serve] media {tuple(batch['media'].shape)}")
     t0 = time.perf_counter()
     out = greedy_generate(model, batch["tokens"], caches, args.gen,
                           media=batch.get("media"))

@@ -1,3 +1,3 @@
 """The language-model scaffolding's models, ported from the JAX package's
-``models/`` (config, layers, GQA attention, the decoder stack): the
-self-attention layers with a dense FFN, the serving slice's scope."""
+``models/``: config, layers, attention (GQA, cross, MLA), MoE, the Mamba2
+SSM and the stack for every layer kind of the ten configs."""

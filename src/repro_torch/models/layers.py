@@ -34,10 +34,6 @@ def truncated_normal(shape, std: float, dtype, device, generator) -> torch.Tenso
     return out
 
 
-def init_rms(d: int, dtype, device) -> torch.Tensor:
-    return torch.zeros((d,), dtype=dtype, device=device)
-
-
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     """RMSNorm computed in float32, the scale applied as ``1 + scale``."""
     x32 = x.float()

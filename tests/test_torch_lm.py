@@ -28,12 +28,8 @@ from repro_torch.serving.cache import make_caches
 torch.set_num_threads(1)
 
 RTOL, ATOL = 1e-5, 1e-6
+#: every arch: all ten serve in the port
 ALL_ARCHS = sorted(rcfg.ARCHS)
-SERVED = ["command-r-plus-104b", "deepseek-67b", "gemma3-12b", "minitron-4b"]
-#: the other archs and the ROADMAP item that will bring each
-REFUSED = {"deepseek-v2-lite-16b": "12.2", "hymba-1.5b": "12.2",
-           "mamba2-2.7b": "12.2", "qwen3-moe-235b-a22b": "12.2",
-           "whisper-large-v3": "12.1b", "llama-3.2-vision-90b": "12.1b"}
 DTYPES = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
 
 
@@ -229,27 +225,48 @@ def _ref_tree(cfg, seed=0):
     return jax.tree.map(np.asarray, ref_init(cfg, jax.random.key(seed)))
 
 
-@pytest.mark.parametrize("name", SERVED)
+def _ref_leaf(rc, tree, name: str) -> np.ndarray:
+    """The reference's array behind a port weight's name: layer i of the
+    stack is ``prologue[i]`` or ``groups[pi][...][g]``, encoder layer j
+    ``encoder[...][j]``."""
+    parts = name.split(".")
+    if len(parts) == 1:
+        return tree[name]
+    n_pro, n_pat = len(rc.prologue), len(rc.pattern)
+    i, path = int(parts[1]), parts[2:]
+    if parts[0] == "encoder":
+        node, at = tree["encoder"], i
+    elif i < n_pro:
+        node, at = tree["prologue"][i], None
+    else:
+        g, pi = divmod(i - n_pro, n_pat)
+        node, at = tree["groups"][pi], g
+    for p in path:
+        node = node[p]
+    return node if at is None else node[at]
+
+
+@pytest.mark.parametrize("name", ALL_ARCHS)
 def test_lm_params_from_arrays_carries_bf16_bit_for_bit(name):
+    """Every leaf of the reference's tree, bit for bit: bf16 ones through
+    an int16 view, the float32 ones (router, A_log, dt_bias, D) as they
+    are; no leaf is left over."""
     rcf = rcfg.get_config(name).reduced()
     tree = _ref_tree(rcf)
     model = convert.lm_params_from_arrays(tcfg.get_config(name).reduced(),
                                           tree, device="cpu")
     sd = model.state_dict()
     assert set(sd) == set(param_shapes(model.cfg))
-    assert all(t.dtype == torch.bfloat16 for t in sd.values())
-    np.testing.assert_array_equal(sd["embed"].view(torch.int16).numpy(),
-                                  tree["embed"].view(np.int16))
-    n_pro, n_pat = len(rcf.prologue), len(rcf.pattern)
-    for g in range(rcf.n_pattern_groups):
-        for pi in range(n_pat):
-            i = n_pro + g * n_pat + pi
-            np.testing.assert_array_equal(
-                sd[f"layers.{i}.attn.wq"].view(torch.int16).numpy(),
-                tree["groups"][pi]["attn"]["wq"][g].view(np.int16))
-            np.testing.assert_array_equal(
-                sd[f"layers.{i}.ffn.w_down"].view(torch.int16).numpy(),
-                tree["groups"][pi]["ffn"]["w_down"][g].view(np.int16))
+    assert sum(t.numel() for t in sd.values()) == sum(
+        a.size for a in jax.tree.leaves(tree))
+    for k, t in sd.items():
+        ref = np.asarray(_ref_leaf(rcf, tree, k))
+        if t.dtype == torch.bfloat16:
+            np.testing.assert_array_equal(t.view(torch.int16).numpy(),
+                                          ref.view(np.int16), err_msg=k)
+        else:
+            assert t.dtype == torch.float32 and ref.dtype == np.float32, k
+            np.testing.assert_array_equal(t.numpy(), ref, err_msg=k)
 
 
 def test_lm_params_from_arrays_refuses_a_mismatched_tree():
@@ -267,18 +284,6 @@ def test_lm_params_from_arrays_refuses_a_mismatched_tree():
     untied = dataclasses.replace(cfg, tie_embeddings=False)
     with pytest.raises(ValueError, match="missing"):
         convert.lm_params_from_arrays(untied, tree, device="cpu")
-
-
-@pytest.mark.parametrize("name", sorted(REFUSED))
-def test_other_archs_raise_naming_their_roadmap_item(name):
-    cfg = tcfg.get_config(name).reduced()
-    item = f"ROADMAP item {REFUSED[name]}"
-    with pytest.raises(NotImplementedError, match=item):
-        init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        make_caches(cfg, 1, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        Transformer(cfg, {})
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

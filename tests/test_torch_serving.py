@@ -217,13 +217,15 @@ def test_sliding_window_cache_is_ring_buffer():
     assert len(caches) == cfg.n_layers
     for i, spec in enumerate(cfg.pattern * cfg.n_pattern_groups):
         Lc = spec.window or 4096
-        assert caches[i].k.shape == (1, Lc, cfg.n_kv_heads, cfg.head_dim)
-        assert caches[i].pos.shape == (Lc,) and bool((caches[i].pos == -1).all())
-    assert caches[0].k.shape[1] == cfg.pattern[0].window
-    assert caches[5].k.shape[1] == 4096
+        kv = caches[i].kv
+        assert kv.k.shape == (1, Lc, cfg.n_kv_heads, cfg.head_dim)
+        assert kv.pos.shape == (Lc,) and bool((kv.pos == -1).all())
+        assert caches[i].ssm is caches[i].xkv is caches[i].ekv is None
+    assert caches[0].kv.k.shape[1] == cfg.pattern[0].window
+    assert caches[5].kv.k.shape[1] == 4096
 
 
-@pytest.mark.parametrize("name", SERVED)
+@pytest.mark.parametrize("name", sorted(rcfg.ARCHS))
 def test_cache_bytes_equal_the_reference(name):
     for reduced in (True, False):
         rc, tc = rcfg.get_config(name), tcfg.get_config(name)
@@ -236,15 +238,6 @@ def test_cache_bytes_equal_the_reference(name):
             lambda: ref_make_caches(rc, 3 if reduced else 4,
                                     40 if reduced else 1132)))
         assert got == want, (name, reduced)
-
-
-def test_media_is_refused():
-    r = _runs("gemma3-12b", "bf16")
-    media = torch.zeros(B, 4, r["model"].cfg.d_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12.1b"):
-        greedy_generate(r["model"], torch.from_numpy(r["toks"][:, :S]),
-                        make_caches(r["model"].cfg, B, S + 2, device="cpu"),
-                        2, media=media)
 
 
 def test_serve_cli_runs_on_the_cpu():

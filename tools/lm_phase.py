@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""chip_smoke.py's phase 16 (LM serving, gemma3-12b) alone, on one GPU.
+"""chip_smoke.py's LM serving phases alone, on one GPU.
 
-    python3 tools/lm_phase.py [--seed 0]
+    python3 tools/lm_phase.py [--seed 0] [--phase 16 | 17 | 16,17]
 
 Narrows its own process to the first GPU the machine gives it, as the smoke
-does, prints the card's name and power limit, then runs phase 16(a) (one
-full-width pattern group in float32, the card against the CPU) and 16(b)
-(the full model in bf16 serving 4 requests of 1,100-token prompts). Needs
-no kernel build.
+does, prints the card's name and power limit, then runs phase 16
+(gemma3-12b: (a) one full-width pattern group in float32, the card against
+the CPU; (b) the full model in bf16 serving 4 requests of 1,100-token
+prompts) and/or phase 17 (the same for deepseek-v2-lite-16b, mamba2-2.7b,
+hymba-1.5b, whisper-large-v3 and llama-3.2-vision-90b). Needs no kernel
+build.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phase", default="16",
+                    help="16, 17 or 16,17 (default 16)")
     args = ap.parse_args(argv)
     sys.stdout.reconfigure(line_buffering=True)
     import chip_smoke as cs
@@ -45,10 +49,15 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(power)
-    t0 = time.perf_counter()
-    cs.phase_lm_group(args.seed, power)
-    cs.phase_lm_serve(args.seed, power)
-    print(f"phase 16 {time.perf_counter() - t0:.1f} s; card {power}")
+    for phase in args.phase.split(","):
+        t0 = time.perf_counter()
+        if phase == "16":
+            cs.phase_lm(args.seed, power)
+        elif phase == "17":
+            cs.phase_lm_kinds(args.seed, power)
+        else:
+            ap.error(f"--phase: {phase!r} is not 16 or 17")
+        print(f"phase {phase} {time.perf_counter() - t0:.1f} s; card {power}")
     return 0
 
 
