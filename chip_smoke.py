@@ -156,7 +156,22 @@ Phases, each of which ends the run non-zero on a failure:
     weights, else the most pattern groups under it) with decode within
     1e-4 of the largest |logit| of ``forward`` (MoE: prefill against
     ``forward`` over the prompt, whose expert capacity is the same),
-    prefill and decode times beside their bounds, peak device memory.
+    prefill and decode times beside their bounds, peak device memory;
+18. LM training (``repro_torch.training``, no kernel of its own): (a)
+    minitron-4b, deepseek-v2-lite-16b (MLA and the MoE dispatch) and
+    mamba2-2.7b (the SSD chunk scan) at full width with the real vocab, one
+    pattern group plus the prologue, in float32 with remat (B = 2, S = 16):
+    the loss, grad_norm and every gradient leaf on the card within 1e-4 of
+    the same weights' on the CPU (of the largest |g| of the leaf); (b)
+    minitron-4b at full width and depth (32 layers, bf16 weights from
+    ``--seed``, remat on) taking 5 AdamW steps on one batch of 2,048
+    tokens: the loss finite and falling, the parameter count the config's
+    and the final norm's, a second run from the same seed with the same
+    loss and weight bits, ms a step (the median of steps 2-5 between CUDA
+    events) and tokens/s beside a bound (``lm_train_flops``: bf16
+    operations at the dense bf16 rate, float32 ones, the attention logits
+    and the ``unembed``, at the float32 rate, the optimizer's bytes at the
+    HBM rate), one step profiled, peak device memory.
 
 It prints the launch counts of the main path's runs, and the per-kernel JSON
 line and the device line last. It needs a CUDA device and the CUDA toolkit.
@@ -3223,6 +3238,234 @@ def phase_lm_kinds(seed: int, power: str) -> list:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 18: LM training
+# --------------------------------------------------------------------------
+
+LM_TRAIN_ARCH = "minitron-4b"  # 18(b), the reference's training example
+#: 18(a)'s archs: dense GQA, MLA with the MoE dispatch, the SSD scan
+LM_TRAIN_GROUP_ARCHS = ("minitron-4b", "deepseek-v2-lite-16b", "mamba2-2.7b")
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 1, 2048, 5
+
+
+def lm_train_opt():
+    """The reference's ``test_smoke_loss_decreases`` schedule."""
+    from repro_torch.training.optimizer import AdamWConfig
+
+    return AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=30)
+
+
+def lm_train_flops(cfg, B: int, S: int) -> dict:
+    """What a training step over B × S tokens must compute: the forward of
+    every layer over every position (``lm_prefill_flops`` without its one
+    position's logits), again in the backward's recomputation with
+    ``cfg.remat``, and twice for the backward; the attention logits (QK,
+    float32 in ``_attend``) and the float32 ``unembed`` (2·B·S·d·vocab, ×3
+    with its backward) at the float32 rate, the rest in ``cfg.dtype``.
+    Returns ``{"low": operations in cfg.dtype, "f32": float32 ones}``."""
+    from repro_torch.models.transformer import layer_specs
+
+    passes = 4 if cfg.remat else 3
+    d, H, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    body = lm_prefill_flops(cfg, B, S) - 2 * B * d * cfg.vocab
+    qk = sum(2 * H * hd * B * sum(min(p + 1, s.window or S) for p in range(S))
+             for s in layer_specs(cfg) if s.kind in ("attn", "hybrid"))
+    return {"low": passes * (body - qk),
+            "f32": passes * qk + 3 * 2 * B * S * d * cfg.vocab}
+
+
+def lm_optimizer_bytes(model) -> int:
+    """AdamW's bytes: each weight, its gradient and its float32 moments
+    read once, the weight and the moments written once."""
+    return sum(p.numel() * (3 * p.element_size() + 16)
+               for p in model.parameters())
+
+
+def phase_lm_train_group(seed: int, power: str) -> None:
+    """18(a): each arch's one pattern group plus the prologue at full width
+    with the real vocab, float32, remat as the config has it (on), TF32
+    off: ``compute_grads`` over B = 2, S = 16 on the card and over the same
+    weights and tokens on the CPU; the loss and grad_norm within rtol 1e-4,
+    every gradient leaf within 1e-4 of its largest |g| on the CPU. Host
+    memory: the CPU's weights and gradients (13.5 GB for minitron's 1.68 B
+    parameters), the card's gradients compared on the card a leaf at a
+    time."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.models.transformer import Transformer, init_params
+    from repro_torch.training.optimizer import global_norm
+    from repro_torch.training.train import compute_grads
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "LM 18(a): TF32 is on for float32 matmuls")
+    for arch in LM_TRAIN_GROUP_ARCHS:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch).with_groups(1),
+                                  dtype=torch.float32)
+        card = init_params(cfg, seed, "cuda")
+        host = Transformer(cfg, {k: v.cpu() for k, v in
+                                 card.state_dict().items()})
+        batch = synthetic_batch(cfg, 0, 16, 2, device="cpu")
+        cgrads, cm = compute_grads(card, {k: v.cuda() for k, v in
+                                          batch.items()})
+        cgn = float(global_norm(cgrads))
+        hgrads, hm = compute_grads(host, batch)
+        hgn = float(global_norm(hgrads))
+        del host
+        worst, worst_leaf = 0.0, None
+        for k in list(hgrads):
+            want = hgrads.pop(k).cuda()
+            gap = max_abs_err(cgrads.pop(k), want) / max(
+                float(want.abs().max()), 1e-30)
+            if gap > worst:
+                worst, worst_leaf = gap, k
+        del card, cgrads
+        torch.cuda.empty_cache()
+        closs, hloss = float(cm["loss"]), float(hm["loss"])
+        print(f"LM 18(a): {cfg.name} ({cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, vocab {cfg.vocab}) float32, remat "
+              f"{cfg.remat}, B 2, S 16: loss card {closs:.9g} CPU "
+              f"{hloss:.9g}, grad_norm card {cgn:.9g} CPU {hgn:.9g}; worst "
+              f"gradient leaf {worst_leaf} {worst:.3g} of its largest |g| "
+              f"(bar {LM_F32_BAR:g}); {time.perf_counter() - t0:.1f} s; "
+              f"card {power}")
+        check(np.isfinite(closs) and abs(closs - hloss) <= LM_F32_BAR * abs(hloss),
+              f"LM 18(a) {arch}: loss card {closs} CPU {hloss}")
+        check(abs(cgn - hgn) <= LM_F32_BAR * hgn,
+              f"LM 18(a) {arch}: grad_norm card {cgn} CPU {hgn}")
+        check(worst <= LM_F32_BAR,
+              f"LM 18(a) {arch}: {worst_leaf} card against CPU {worst:.3g}")
+
+
+def _train_run(cfg, seed: int, batch: dict, steps: int) -> dict:
+    """``steps`` steps from ``seed`` between CUDA events: the model, its
+    state, each step's loss (host floats) and ms, the peak allocation."""
+    import torch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training.train import init_train_state, make_train_step
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed, "cuda")
+    opt = init_train_state(cfg, model)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    step = make_train_step(cfg, lm_train_opt())
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    losses = []
+    ev[0].record()
+    for i in range(steps):
+        model, opt, m = step(model, opt, batch)
+        ev[i + 1].record()
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    return dict(model=model, opt=opt, step=step, init_s=t_init,
+                losses=torch.stack(losses).cpu(),
+                ms=[ev[i].elapsed_time(ev[i + 1]) for i in range(steps)],
+                peak=torch.cuda.max_memory_allocated())
+
+
+def profile_train_step(run: dict, batch: dict, top: int = 8) -> dict:
+    """One more training step of ``run`` under ``torch.profiler``: host
+    wall ms, device busy ms and idle share, device ops, the costliest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run["step"](run["model"], run["opt"], batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev, ops, busy = device_ops(prof, "LM 18(b) profile")
+    rows = sorted(ops.items(), key=lambda kv: -kv[1][1])[:top]
+    return dict(wall_ms=wall_ms, busy_ms=busy, idle=1 - busy / wall_ms,
+                device_ops=len(dev),
+                top=[(op[:90], c, dt / 1e3) for op, (c, dt) in rows])
+
+
+def phase_lm_train(seed: int, power: str) -> dict:
+    """Phase 18: 18(a), then 18(b), minitron-4b as its config has it."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.launch.roofline import BF16_DENSE_FLOPS_PER_S
+
+    t_phase = time.perf_counter()
+    phase_lm_train_group(seed, power)
+    t0 = time.perf_counter()
+    cfg = get_config(LM_TRAIN_ARCH)
+    B, S, n = LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS
+    batch = synthetic_batch(cfg, 0, S, B, device="cuda")
+    first = _train_run(cfg, seed, batch, n)
+    model = first["model"]
+    n_params = sum(p.numel() for p in model.parameters())
+    flops = lm_train_flops(cfg, B, S)
+    opt_bytes = lm_optimizer_bytes(model)
+    kept = [p.detach().cpu() for p in model.parameters()]
+    del first["model"], first["opt"], first["step"], model
+    torch.cuda.empty_cache()
+    second = _train_run(cfg, seed, batch, n)
+    same_loss = torch.equal(first["losses"], second["losses"])
+    differ = [k for (k, p), q in zip(second["model"].named_parameters(), kept)
+              if not torch.equal(p.detach().cpu(), q)]
+    del kept
+    prof = profile_train_step(second, batch)
+    del second["model"], second["opt"], second["step"]
+    torch.cuda.empty_cache()
+
+    losses = first["losses"].tolist()
+    median_ms = statistics.median(first["ms"][1:])
+    bound = dict(low_ms=flops["low"] / BF16_DENSE_FLOPS_PER_S * 1e3,
+                 f32_ms=flops["f32"] / F32_FLOPS_PER_S * 1e3,
+                 bytes_ms=opt_bytes / HBM_BYTES_PER_S * 1e3)
+    bound_ms = sum(bound.values())
+    out = dict(arch=cfg.name, layers=cfg.n_layers, params=n_params,
+               batch=B, seq=S, steps=n, losses=losses,
+               second_losses=second["losses"].tolist(), step_ms=first["ms"],
+               second_step_ms=second["ms"], median_ms=median_ms,
+               tok_s=B * S / median_ms * 1e3, bound_ms=bound_ms,
+               bound_terms_ms=bound, flops=flops, optimizer_bytes=opt_bytes,
+               peak_bytes=first["peak"], second_peak_bytes=second["peak"],
+               init_s=first["init_s"], same_loss_bits=same_loss,
+               leaves_differ=differ, profile=prof,
+               seconds=time.perf_counter() - t0)
+    print("LM 18(b) " + json.dumps(out))
+    print(f"LM 18(b): {cfg.name} {cfg.n_layers} layers bf16, remat "
+          f"{cfg.remat}, {n_params} parameters; {n} AdamW steps on B {B} x "
+          f"S {S}: loss {' '.join(f'{x:.6f}' for x in losses)}; a step "
+          f"{median_ms:.3f} ms, median of steps 2-{n} (all "
+          f"{', '.join(f'{x:.1f}' for x in first['ms'])}), "
+          f"{B * S / median_ms * 1e3:.0f} tok/s, against a bound of "
+          f"{bound_ms:.3f} ms ({flops['low']:.6g} bf16 operations at "
+          f"989e12/s {bound['low_ms']:.3f} ms + {flops['f32']:.6g} float32 "
+          f"ones at 67e12/s {bound['f32_ms']:.3f} ms + {opt_bytes} optimizer "
+          f"bytes at 3.35e12/s {bound['bytes_ms']:.3f} ms); one step "
+          f"profiled: {prof['device_ops']} device ops, busy "
+          f"{prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms (idle "
+          f"{prof['idle']:.4f}); peak device memory {first['peak']} bytes; "
+          f"second run: same loss bits {same_loss}, {len(differ)} weight "
+          f"leaves differ; weights drawn in {first['init_s']:.1f} s; "
+          f"{out['seconds']:.1f} s; card {power}")
+    for op, count, ms in prof["top"]:
+        print(f"LM profile:   {ms:8.3f} ms  x{count:4d}  {op}")
+    check(all(np.isfinite(losses)), f"LM 18(b): non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"LM 18(b): the loss did not fall {losses}")
+    check(n_params == cfg.n_params() + cfg.d_model,
+          f"LM 18(b): {n_params} parameters, the config counts "
+          f"{cfg.n_params()} and the final norm's {cfg.d_model}")
+    check(same_loss and not differ,
+          f"LM 18(b): two runs from seed {seed} differ: losses "
+          f"{losses} / {out['second_losses']}, leaves {differ[:8]}")
+    print(f"LM phase 18: {time.perf_counter() - t_phase:.1f} s; card {power}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=24)
@@ -3314,6 +3557,8 @@ def main(argv=None) -> int:
     lap("16")
     phase_lm_kinds(args.seed, built["power"])
     lap("17")
+    phase_lm_train(args.seed, built["power"])
+    lap("18")
     for name, k in kernels.items():
         k["launches"] = launches[name]
         k["mesh_launches_per_rank"] = mesh["launches_per_rank"][name]

@@ -78,7 +78,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+    """The rows of ``table`` (vocab, d) for ``tokens``. Its backward is the
+    dense embedding backward, which sorts the tokens and adds each row's
+    gradients in that order on the card too (``table[tokens]``'s would be
+    an ``index_put_``), so two training runs give the same bits."""
+    return torch.nn.functional.embedding(tokens, table)
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

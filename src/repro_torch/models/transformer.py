@@ -22,6 +22,12 @@ a GQA or MLA ring, an SSM state, and the cross K/V of the media or encoder
 states. The reference makes the cross K/V caches as zeros and never fills
 them; here a prefill projects the media into them (``serving/engine.py``
 says why).
+
+Training (``training/train.py``): the weights are frozen until a training
+step turns their gradients on; ``forward(..., with_aux=True)`` also returns
+the MoE load-balance loss, and with ``cfg.remat`` each pattern group and
+each encoder layer is recomputed in the backward (``torch.utils.checkpoint``)
+where the reference wraps its scan body in ``jax.checkpoint``.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.device import resolve_device
@@ -144,6 +151,31 @@ def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     return shapes
 
 
+def tree_slots(cfg: ModelConfig) -> dict[str, tuple[tuple, int | None]]:
+    """Every port weight name and where the reference's param tree holds
+    it: ``(path, g)``, ``path`` the keys and list indices from the root,
+    ``g`` the index along a stacked leaf's first axis (None if unstacked).
+    Layer ``i`` past the prologue is ``groups[pi][...][g]`` with ``i =
+    len(prologue) + g·len(pattern) + pi``; encoder layer j is
+    ``encoder[...][j]``."""
+    n_pro, n_pat = len(cfg.prologue), len(cfg.pattern)
+    out = {}
+    for name in param_shapes(cfg):
+        parts = name.split(".")
+        if parts[0] == "layers":
+            i, rest = int(parts[1]), tuple(parts[2:])
+            if i < n_pro:
+                out[name] = (("prologue", i) + rest, None)
+            else:
+                g, pi = divmod(i - n_pro, n_pat)
+                out[name] = (("groups", pi) + rest, g)
+        elif parts[0] == "encoder":
+            out[name] = (("encoder",) + tuple(parts[2:]), int(parts[1]))
+        else:
+            out[name] = ((name,), None)
+    return out
+
+
 def param_dtype(cfg: ModelConfig, name: str) -> torch.dtype:
     """A weight's dtype: float32 for the router and the SSM's ``A_log``,
     ``dt_bias`` and ``D``, as in the reference; ``cfg.dtype`` otherwise."""
@@ -151,6 +183,8 @@ def param_dtype(cfg: ModelConfig, name: str) -> torch.dtype:
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
+    """Weights are frozen: serving builds no autograd graph. A training
+    step turns their gradients on for its own forward and backward."""
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -200,8 +234,10 @@ def _cross_kv(cfg: ModelConfig, p, states, cache: CrossKV | None):
 class DecoderLayer(nn.Module):
     """Pre-norm mixing (attention, MLA, SSM, both side by side, or
     cross-attention), Whisper's cross-attention to the encoder, then the
-    FFN, each added to the stream. A MoE layer keeps its last call's
-    ``(aux, dropped)`` in ``moe_stats`` (device scalars)."""
+    FFN, each added to the stream. ``forward`` returns ``(x, aux)``: the
+    MoE load-balance loss, or None for another FFN. A MoE layer keeps its
+    last call's ``(aux, dropped)`` in ``moe_stats``, detached (device
+    scalars): they hold no autograd graph alive after a training step."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec, p: dict):
         super().__init__()
@@ -246,19 +282,21 @@ class DecoderLayer(nn.Module):
             x = x + gqa_attention(self.xattn, hx, positions, cross_kv=ekv,
                                   **kw)
 
+        aux = None
         if spec.ffn != "none":
             h2 = rms_norm(x, self.ln2, cfg.norm_eps)
             f = self.ffn
             if spec.ffn == "moe":
-                y, self.moe_stats = moe_ffn(
+                y, (aux, dropped) = moe_ffn(
                     f, h2, n_experts=cfg.n_experts, topk=cfg.topk,
                     capacity_factor=cfg.capacity_factor,
                     n_shared=cfg.n_shared_experts)
+                self.moe_stats = (aux.detach(), dropped.detach())
             else:
                 y = swiglu_ffn(h2, f["w_gate"], f["w_up"], f["w_down"],
                                self.act)
             x = x + y
-        return x
+        return x, aux
 
 
 class EncoderLayer(nn.Module):
@@ -287,6 +325,10 @@ class EncoderLayer(nn.Module):
 
 def _arange(S: int, B: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+
+
+def _checkpoint(fn, *args):
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
 class Transformer(nn.Module):
@@ -335,7 +377,8 @@ class Transformer(nn.Module):
         x = media.to(self.cfg.dtype)
         positions = _arange(x.shape[1], x.shape[0], x.device)
         for layer in self.encoder:
-            x = layer(x, positions)
+            x = (_checkpoint(layer, x, positions) if self._remat()
+                 else layer(x, positions))
         return rms_norm(x, self.enc_final_norm, self.cfg.norm_eps)
 
     def media_states(self, media) -> dict:
@@ -356,16 +399,45 @@ class Transformer(nn.Module):
             return {"enc_states": self.encoder_forward(media)}
         return {"media_states": media.to(cfg.dtype)}
 
+    def _remat(self) -> bool:
+        """Whether to recompute activations in the backward: ``cfg.remat``
+        while the weights are being trained (``make_train_step`` turns their
+        gradients on for a step), never while serving."""
+        return (self.cfg.remat and torch.is_grad_enabled()
+                and self.embed.requires_grad)
+
+    def _run_layers(self, lo: int, hi: int, x, aux, positions, caches, pos,
+                    media_states, enc_states):
+        for i in range(lo, hi):
+            x, a = self.layers[i](x, positions,
+                                  None if caches is None else caches[i], pos,
+                                  media_states, enc_states)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
     def apply_stack(self, x, positions, caches=None, pos: int | None = None,
                     media_states=None, enc_states=None):
-        """Run every layer; with ``caches`` (a ``LayerCache`` a layer) a
+        """Run every layer; returns ``(x, aux)``, the MoE load-balance
+        losses added in stack order from float32 0 (the reference's
+        ``apply_stack``). With ``caches`` (a ``LayerCache`` a layer) a
         prefill (S > 1) fills them and a decode (S == 1, at the Python int
         ``pos``) writes and reads them. Media or encoder states, given, are
-        projected for the cross layers (and into their caches)."""
-        for i, layer in enumerate(self.layers):
-            x = layer(x, positions, None if caches is None else caches[i],
-                      pos, media_states, enc_states)
-        return x
+        projected for the cross layers (and into their caches). Under
+        ``_remat`` each pattern group runs in one activation checkpoint, the
+        prologue outside them, as the reference's scan body."""
+        cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        args = (positions, caches, pos, media_states, enc_states)
+        n_pro = len(cfg.prologue)
+        x, aux = self._run_layers(0, n_pro, x, aux, *args)
+        if not self._remat():
+            return self._run_layers(n_pro, len(self.layers), x, aux, *args)
+        n_pat = len(cfg.pattern)
+        for lo in range(n_pro, len(self.layers), n_pat):
+            x, aux = _checkpoint(self._run_layers, lo, lo + n_pat, x, aux,
+                                 *args)
+        return x, aux
 
     def moe_stats(self) -> list:
         """``(aux, dropped)`` of every MoE layer's last call, in stack
@@ -373,16 +445,18 @@ class Transformer(nn.Module):
         return [layer.moe_stats for layer in self.layers
                 if layer.spec.ffn == "moe"]
 
-    def forward(self, tokens, media=None):
-        """The causal forward from position 0: float32 logits (B, S, vocab).
-        The reference's second output, the MoE auxiliary loss, is not
-        returned: ``moe_stats`` holds each layer's."""
+    def forward(self, tokens, media=None, *, with_aux: bool = False):
+        """The causal forward from position 0: float32 logits (B, S, vocab),
+        and with ``with_aux`` the reference's second output too,
+        ``(logits, aux)``: the MoE load-balance losses summed in stack
+        order (float32 0 without MoE layers)."""
         B, S = tokens.shape
         x = embed(tokens, self.embed).to(self.cfg.dtype)
-        x = self.apply_stack(x, _arange(S, B, tokens.device),
-                             **self.media_states(media))
+        x, aux = self.apply_stack(x, _arange(S, B, tokens.device),
+                                  **self.media_states(media))
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        return unembed(x, self.table)
+        logits = unembed(x, self.table)
+        return (logits, aux) if with_aux else logits
 
 
 def init_params(cfg: ModelConfig, seed: int, device=None) -> Transformer:

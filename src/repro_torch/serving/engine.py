@@ -37,7 +37,7 @@ def prefill(model: Transformer, tokens: torch.Tensor,
     x = embed(tokens, model.embed).to(cfg.dtype)
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
-    x = model.apply_stack(x, positions, caches, **states)
+    x, _ = model.apply_stack(x, positions, caches, **states)
     x = rms_norm(x[:, -1:], model.final_norm, cfg.norm_eps)
     return unembed(x, model.table)[:, 0]
 
@@ -51,7 +51,7 @@ def decode_step(model: Transformer, caches: list[LayerCache],
     B = token.shape[0]
     x = embed(token, model.embed).to(cfg.dtype)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=token.device)
-    x = model.apply_stack(x, positions, caches, pos)
+    x, _ = model.apply_stack(x, positions, caches, pos)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     return unembed(x, model.table)[:, 0]
 

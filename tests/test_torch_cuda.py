@@ -4,9 +4,12 @@ in-memory modes and the recovery layer on the card against the CPU, the
 flat skip() prefix at a size where n*P passes 2^24, the multi-process
 launch on the card over both transports, the torch backend's ordered float
 sums (``kernels/run_sum``, and its accumulating form under the streamed
-fold and ``segment_sum``) bit for bit against the CPU, the mesh, and LM
+fold and ``segment_sum``) bit for bit against the CPU, the mesh, LM
 serving (one full-width gemma3-12b pattern group in float32 against the
-CPU, greedy decoding run twice, the ring past the window).
+CPU, greedy decoding run twice, the ring past the window), and LM training
+at reduced size (microbatches and int8 compression on the card against
+the CPU, a checkpoint's resume against the run it broke, two runs with
+the same bits).
 
 These tests need a CUDA device and skip without one. They import neither
 jax nor the JAX package, so they run on the GPU machine as they are:
@@ -1032,3 +1035,110 @@ def test_lm_ring_decode_matches_forward_on_card(cuda):
     got = _lm_logits(model, toks, 13, 6, cuda)
     want = model(toks)[:, 12:].transpose(0, 1)
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# LM training (no kernel of its own): the card against the CPU and itself
+# ---------------------------------------------------------------------------
+
+def _train(cfg, device, steps, microbatches=1, seed=0, model=None,
+           opt=None, first=0):
+    """``steps`` AdamW steps (lr 1e-3 after one warmup step) of a model
+    from ``seed`` (or of ``model``/``opt``) on the batches of steps
+    ``first``.. (B = 4, S = 16): the model, its state, the last metrics."""
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train import init_train_state, make_train_step
+
+    if model is None:
+        model = init_params(cfg, seed, device)
+        opt = init_train_state(cfg, model)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                            total_steps=30), microbatches)
+    for s in range(first, first + steps):
+        model, opt, m = step(model, opt, synthetic_batch(cfg, s, 16, 4,
+                                                         device=device))
+    return model, opt, m
+
+
+def _to(model, device):
+    from repro_torch.models.transformer import Transformer
+
+    return Transformer(model.cfg, {k: v.to(device, copy=True) for k, v in
+                                   model.state_dict().items()})
+
+
+@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b", "minitron-4b"])
+def test_train_microbatches_and_compress_on_card_match_cpu(cuda, name):
+    """Reduced, float32, ``microbatches=2`` and ``grad_compress``: two
+    steps on the card against the same weights on the CPU. The loss and
+    grad_norm within rtol 1e-4; mu within 1e-2 of its leaf's largest |mu|
+    (a quantization code at a rounding boundary may differ, moving mu by
+    (1 - b1)/127 of the largest |g|), the weights within 2·lr a step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training.train import init_train_state
+
+    cfg = dataclasses.replace(get_config(name).reduced(), dtype=torch.float32,
+                              grad_compress=True)
+    card = init_params(cfg, 4, cuda)
+    host = _to(card, "cpu")
+    card, copt, cm = _train(cfg, cuda, 2, 2, model=card,
+                            opt=init_train_state(cfg, card))
+    host, hopt, hm = _train(cfg, "cpu", 2, 2, model=host,
+                            opt=init_train_state(cfg, host))
+    for key in ("loss", "grad_norm"):
+        assert float(cm[key]) == pytest.approx(float(hm[key]), rel=1e-4)
+    for k, v in hopt["mu"].items():
+        assert float((copt["mu"][k].cpu() - v).abs().max()) <= 1e-2 * float(
+            v.abs().max()), k
+    for (k, p), q in zip(card.named_parameters(), host.parameters()):
+        assert float((p.detach().cpu() - q).abs().max()) <= 2 * 1e-3 * 2, k
+
+
+def test_train_checkpoint_resume_on_card_equals_uninterrupted(cuda, tmp_path):
+    """bf16, compressed: 2 steps, save, restore into a model from another
+    seed on the card, 2 more steps: the bits of 4 steps without a break."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import restore_train_ckpt, save_train_ckpt
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training.train import init_train_state
+
+    cfg = dataclasses.replace(get_config("minitron-4b").reduced(),
+                              grad_compress=True)
+    whole, wopt, wm = _train(cfg, cuda, 4)
+    first, fopt, _ = _train(cfg, cuda, 2)
+    save_train_ckpt(str(tmp_path), 2, first, fopt)
+    later = init_params(cfg, 7, cuda)
+    n, later, lopt = restore_train_ckpt(str(tmp_path), later,
+                                        init_train_state(cfg, later))
+    assert n == 2 and lopt["step"].device == later.embed.device
+    later, lopt, lm = _train(cfg, cuda, 2, model=later, opt=lopt, first=n)
+    assert torch.equal(wm["loss"], lm["loss"])
+    assert all(torch.equal(a, b) for a, b in zip(whole.parameters(),
+                                                 later.parameters()))
+    for m in ("mu", "nu", "err"):
+        assert all(torch.equal(wopt[m][k], lopt[m][k]) for k in wopt[m])
+
+
+@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b", "hymba-1.5b",
+                                  "minitron-4b", "whisper-large-v3"])
+def test_train_twice_identical_on_card(cuda, name):
+    """Reduced, bf16, remat on: two 3-step runs from one seed give the same
+    loss and weight bits (the embedding's backward adds in a fixed order,
+    the MoE combine adds a token's copies in order)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(name).reduced(), remat=True)
+    runs = [_train(cfg, cuda, 3) for _ in range(2)]
+    (m0, _, a), (m1, _, b) = runs
+    assert torch.isfinite(a["loss"]) and torch.equal(a["loss"], b["loss"])
+    assert all(torch.equal(p, q) for p, q in zip(m0.parameters(),
+                                                 m1.parameters()))

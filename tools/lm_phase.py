@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""chip_smoke.py's LM serving phases alone, on one GPU.
+"""chip_smoke.py's LM phases alone, on one GPU.
 
-    python3 tools/lm_phase.py [--seed 0] [--phase 16 | 17 | 16,17]
+    python3 tools/lm_phase.py [--seed 0] [--phase 16 | 17 | 18 | 16,17,18]
 
 Narrows its own process to the first GPU the machine gives it, as the smoke
 does, prints the card's name and power limit, then runs phase 16
 (gemma3-12b: (a) one full-width pattern group in float32, the card against
 the CPU; (b) the full model in bf16 serving 4 requests of 1,100-token
 prompts) and/or phase 17 (the same for deepseek-v2-lite-16b, mamba2-2.7b,
-hymba-1.5b, whisper-large-v3 and llama-3.2-vision-90b). Needs no kernel
-build.
+hymba-1.5b, whisper-large-v3 and llama-3.2-vision-90b) and/or phase 18
+(training: (a) one full-width pattern group of minitron-4b, deepseek-v2-
+lite-16b and mamba2-2.7b, gradients on the card against the CPU; (b)
+minitron-4b at full width and depth taking 5 AdamW steps, twice). Needs no
+kernel build.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phase", default="16",
-                    help="16, 17 or 16,17 (default 16)")
+                    help="16, 17, 18 or a list such as 16,17 (default 16)")
     args = ap.parse_args(argv)
     sys.stdout.reconfigure(line_buffering=True)
     import chip_smoke as cs
@@ -55,8 +58,10 @@ def main(argv=None) -> int:
             cs.phase_lm(args.seed, power)
         elif phase == "17":
             cs.phase_lm_kinds(args.seed, power)
+        elif phase == "18":
+            cs.phase_lm_train(args.seed, power)
         else:
-            ap.error(f"--phase: {phase!r} is not 16 or 17")
+            ap.error(f"--phase: {phase!r} is not 16, 17 or 18")
         print(f"phase {phase} {time.perf_counter() - t0:.1f} s; card {power}")
     return 0
 
