@@ -128,6 +128,9 @@ Phases, each of which ends the run non-zero on a failure:
     one-GPU machine); the model's resident bytes equal to the main
     partition's tensors and ``dst_order``, and its HBM term for the
     emulated 8-shard PageRank superstep at or below phase 9's measured one;
+    then the reference's 80 LM cells (ten archs x four shapes x the 256-
+    and 512-GPU meshes, ``run_cell``): 66 priced and the reference's 14
+    declared skips, a line each, and those past the card's 80 GB;
 16. LM serving (``repro_torch.serving``, no kernel of its own): (a) one
     pattern group of gemma3-12b (5 local layers, 1 global) at full width
     with the real vocab in float32, a prefill of 16 tokens and 4 decode
@@ -138,8 +141,11 @@ Phases, each of which ends the run non-zero on a failure:
     32 tokens each: two greedy runs with identical tokens, each decode
     step's logits against ``forward`` over the same tokens (the bf16 gap
     printed; the same depth, width and tokens in float32 held within 1e-4
-    of the largest |logit|), prefill and decode times beside their bounds,
-    peak device memory;
+    of the largest |logit|), prefill and decode times beside their bounds
+    (``launch/roofline.py``'s counts), peak device memory beside the dry
+    run's one-GPU cell at this shape, whose argument bytes must be the
+    weights, caches and tokens on the card (17(b) the same, Whisper
+    excepted);
 17. LM serving, the other layer kinds (MLA and MoE: deepseek-v2-lite-16b;
     Mamba2: mamba2-2.7b; the hybrid: hymba-1.5b; the encoder-decoder:
     whisper-large-v3; cross layers: llama-3.2-vision-90b): (a) each at full
@@ -171,7 +177,9 @@ Phases, each of which ends the run non-zero on a failure:
     events) and tokens/s beside a bound (``lm_train_flops``: bf16
     operations at the dense bf16 rate, float32 ones, the attention logits
     and the ``unembed``, at the float32 rate, the optimizer's bytes at the
-    HBM rate), one step profiled, peak device memory.
+    HBM rate; ``launch/roofline.py``'s counts), one step profiled, peak
+    device memory beside the dry run's one-GPU cell, whose argument bytes
+    must be the weights, moments, step and batch on the card.
 
 It prints the launch counts of the main path's runs, and the per-kernel JSON
 line and the device line last. It needs a CUDA device and the CUDA toolkit.
@@ -2736,8 +2744,13 @@ def dryrun_records(link_bytes_per_s) -> None:
     """Table 1's clueweb and webuk at n = 256 and 512, ``recoded`` and the
     reference's C1-C3 variants, each record's line (clueweb's base records
     in full), the collective term at ``link_bytes_per_s`` where given;
-    each must fit the card's memory."""
-    from repro_torch.launch.dryrun import run_graphd_cell, summary
+    each must fit the card's memory. Then the reference's 80 LM cells (ten
+    archs x four shapes x both meshes): each priced, or the reference's
+    declared skip, a line each, and the cells past the card's 80 GB."""
+    from repro_torch.configs import ARCHS, SHAPES, cell_supported
+    from repro_torch.launch.dryrun import (
+        cell_line, run_cell, run_graphd_cell, summary,
+    )
 
     variants = (("", "recoded", 4096), ("C1", "recoded_compact", 4096),
                 ("C2", "recoded", 16384), ("C3", "recoded_compact", 16384))
@@ -2750,6 +2763,26 @@ def dryrun_records(link_bytes_per_s) -> None:
                 if not tag and scale == "clueweb":
                     print("dryrun " + json.dumps(rec))
                 print("dry run: " + summary(rec))
+    t0 = time.perf_counter()
+    counts, big = {"ok": 0, "skipped": 0}, []
+    for multi in (False, True):
+        for arch in ARCHS:
+            for shape in SHAPES:
+                rec = run_cell(arch, shape, multi,
+                               link_bytes_per_s=link_bytes_per_s)
+                supported = cell_supported(arch, shape)[0]
+                check(rec["ok"] == supported and rec.get("skipped",
+                                                         False) != supported,
+                      f"dry run: {cell_line(rec)}")
+                counts["ok" if rec["ok"] else "skipped"] += 1
+                if rec["ok"] and not rec["fits"]:
+                    big.append(f"{arch} x {shape} on {rec['mesh']}")
+                print("dry run LM: " + cell_line(rec))
+    check(counts == {"ok": 66, "skipped": 14},
+          f"dry run: LM cells {counts}, the reference's 66 ok and 14 skips")
+    print(f"dry run LM: {counts['ok']} cells priced, {counts['skipped']} "
+          f"declared skips in {time.perf_counter() - t0:.2f} s; past the "
+          f"card's 80 GB: {', '.join(big) if big else 'none'}")
 
 
 def phase_dryrun(pg, profile: dict, link_bytes_per_s, power: str) -> None:
@@ -2858,66 +2891,6 @@ def moved_media(media):
     return media * 3 + 1
 
 
-def lm_prefill_flops(cfg, B: int, S: int, n_media: int = 0) -> float:
-    """What a prefill of B × S tokens must compute, layer by layer: two
-    operations a weight a token it meets, QK and PV over the (query, key)
-    pairs each mask keeps (MLA's keys are hd + rd wide), the media or
-    encoder frames' K/V projections and cross pairs, the encoder over the
-    frames, the SSD scan's chunked products, the MoE experts over their
-    whole (E, C, d) buffers (the reference's function runs all E), and the
-    last position's float32 logits."""
-    from repro_torch.models.ssm import pick_chunk
-    from repro_torch.models.transformer import layer_specs
-
-    d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    T, tok = n_media, B * S
-
-    def pairs(window):
-        return B * sum(min(p + 1, window or S) for p in range(S))
-
-    def attn(n_tok, n_pairs, kv_tok):
-        return (2 * n_tok * 2 * d * H * hd + 2 * kv_tok * 2 * d * Hkv * hd
-                + 4 * H * hd * n_pairs)
-
-    def ssm():
-        di, N, nh, K = (cfg.d_ssm_inner, cfg.ssm_state, cfg.n_ssm_heads,
-                        cfg.ssm_conv)
-        L, shd = pick_chunk(S, cfg.ssm_chunk), cfg.ssm_head_dim
-        return (2 * tok * (d * (2 * di + 2 * N + nh) + di * d)
-                + 2 * tok * K * (di + 2 * N)
-                + 2 * tok * (L * N + nh * L * shd + 2 * nh * shd * N))
-
-    def ffn(spec):
-        if spec.ffn == "none":
-            return 0
-        if spec.ffn == "dense":
-            return 2 * tok * 3 * d * cfg.d_ff
-        E, f = cfg.n_experts, cfg.moe_dff
-        C = int(cfg.capacity_factor * cfg.topk * tok / E) + 1
-        return (2 * tok * d * E + 2 * E * C * 3 * d * f
-                + 2 * tok * 3 * d * f * cfg.n_shared_experts)
-
-    total = 2 * B * d * cfg.vocab
-    for spec in layer_specs(cfg):
-        if spec.kind in ("attn", "hybrid"):
-            total += attn(tok, pairs(spec.window), tok)
-        if spec.kind in ("ssm", "hybrid"):
-            total += ssm()
-        if spec.kind == "cross":
-            total += attn(tok, B * S * T, B * T)
-        if spec.kind == "mla":
-            r, rd = cfg.mla_kv_lora, cfg.mla_rope_dim
-            total += (2 * tok * (d * H * (hd + rd) + d * (r + rd) + H * hd * d
-                                 + r * H * 2 * hd)
-                      + 2 * H * (2 * hd + rd) * pairs(None))
-        if cfg.n_enc_layers:
-            total += attn(tok, B * S * T, B * T)
-        total += ffn(spec)
-    for _ in range(cfg.n_enc_layers):
-        total += attn(B * T, B * T * T, B * T) + 2 * B * T * 3 * d * cfg.d_ff
-    return total
-
-
 def profile_decode_step(model, caches, token, pos: int, top: int = 8) -> dict:
     """One decode step under ``torch.profiler``: its host wall time, the
     device's busy time and idle share, its device ops (launches) and the
@@ -2939,6 +2912,32 @@ def profile_decode_step(model, caches, token, pos: int, top: int = 8) -> dict:
     return dict(wall_ms=wall_ms, busy_ms=busy, idle=1 - busy / wall_ms,
                 device_ops=len(dev),
                 top=[(op[:90], c, dt / 1e3) for op, (c, dt) in rows])
+
+
+def tensor_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def one_gpu_prefill_cell(cfg, B: int, S: int, max_len: int,
+                         weight_bytes: int, c_bytes: int, inputs: list):
+    """The dry run's prefill cell at mesh (1, 1) and the smoke's own shape
+    (B x S, caches of ``max_len``): its ``argument_bytes`` must be the
+    weights, caches and ``inputs`` (tokens, media) on the card. None for
+    Whisper, whose reference prefill holds 448 decoder tokens, not the
+    smoke's prompt."""
+    from repro_torch.launch.dryrun import run_cell
+
+    if cfg.family == "audio":
+        return None
+    cell = run_cell(cfg.name, f"prefill_{S}", cfg=cfg, mesh_shape=(1, 1),
+                    shape_info=dict(seq_len=S, global_batch=B,
+                                    kind="prefill", cache_len=max_len))
+    held = weight_bytes + c_bytes + tensor_bytes(inputs)
+    check(cell["argument_bytes"] == held,
+          f"LM {cfg.name}: the dry run's one-GPU cell prices "
+          f"{cell['argument_bytes']} bytes of arguments, the weights, caches "
+          f"and inputs on the card are {held}")
+    return cell
 
 
 def weight_bytes_f32(cfg) -> int:
@@ -3048,7 +3047,7 @@ def phase_lm_serve(label: str, arch: str, seed: int, power: str,
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import synthetic_batch
     from repro_torch.launch.roofline import (
-        BF16_DENSE_FLOPS_PER_S, HBM_BYTES_PER_S,
+        lm_prefill_bound_ms, lm_prefill_flops, lm_weight_bytes,
     )
     from repro_torch.models.transformer import init_params, uses_media
     from repro_torch.serving.cache import cache_bytes, make_caches
@@ -3148,9 +3147,13 @@ def phase_lm_serve(label: str, arch: str, seed: int, power: str,
 
     median_ms = statistics.median(step_ms)
     decode_bound_ms = (weight_bytes + c_bytes) / HBM_BYTES_PER_S * 1e3
+    check(weight_bytes == lm_weight_bytes(cfg),
+          f"LM {arch}: {weight_bytes} weight bytes on the card, the config's "
+          f"shapes and dtypes make {lm_weight_bytes(cfg)}")
     flops = lm_prefill_flops(cfg, B, S, n_media)
-    prefill_bound_ms = max(flops / BF16_DENSE_FLOPS_PER_S,
-                           weight_bytes / HBM_BYTES_PER_S) * 1e3
+    prefill_bound_ms = lm_prefill_bound_ms(cfg, B, S, n_media)
+    cell = one_gpu_prefill_cell(cfg, B, S, max_len, weight_bytes, c_bytes,
+                                [prompt] + ([] if media is None else [media]))
     out = dict(
         arch=cfg.name, layers=cfg.n_layers, enc_layers=cfg.n_enc_layers,
         prompt=S, media=n_media, params=n_params, weight_bytes=weight_bytes,
@@ -3160,6 +3163,8 @@ def phase_lm_serve(label: str, arch: str, seed: int, power: str,
         decode_ms_max=max(step_ms), greedy_s=gen_s,
         decode_bound_ms=decode_bound_ms, prefill_bound_ms=prefill_bound_ms,
         prefill_flops=flops, peak_bytes=peak, base_bytes=base,
+        dryrun_argument_bytes=cell and cell["argument_bytes"],
+        dryrun_peak_bytes_model=cell and cell["peak_bytes_model"],
         tokens_moved_by_media=moved, bf16_gap=gap, bf16_max_logit=top,
         f32_cut=cut, f32_gap=gap32, f32_max_logit=top32, f32_held=held,
         f32_held_max_logit=held_top, f32_decode_drop=drop_dec,
@@ -3185,8 +3190,14 @@ def phase_lm_serve(label: str, arch: str, seed: int, power: str,
           f"bytes/s); one decode step profiled: {prof['device_ops']} device "
           f"ops, device busy {prof['busy_ms']:.3f} ms of "
           f"{prof['wall_ms']:.3f} ms (idle {prof['idle']:.4f}); peak device "
-          f"memory {peak} bytes ({base} before); weights drawn in "
-          f"{t_init:.1f} s; card {power}")
+          f"memory {peak} bytes ({base} before)"
+          + (f", the dry run's one-GPU cell {cell['argument_bytes']} bytes "
+             f"of arguments (the weights, caches, tokens"
+             f"{' and media' if media is not None else ''} on the card), "
+             f"peak_bytes_model {cell['peak_bytes_model']}" if cell else
+             ", no dry-run cell (the reference's Whisper prefill holds 448 "
+             "decoder tokens)")
+          + f"; weights drawn in {t_init:.1f} s; card {power}")
     for op, count, ms in prof["top"]:
         print(f"LM profile:   {ms:8.3f} ms  x{count:4d}  {op}")
     what = ("prefill against forward over the prompt (the same tokens, so "
@@ -3253,32 +3264,6 @@ def lm_train_opt():
     from repro_torch.training.optimizer import AdamWConfig
 
     return AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=30)
-
-
-def lm_train_flops(cfg, B: int, S: int) -> dict:
-    """What a training step over B × S tokens must compute: the forward of
-    every layer over every position (``lm_prefill_flops`` without its one
-    position's logits), again in the backward's recomputation with
-    ``cfg.remat``, and twice for the backward; the attention logits (QK,
-    float32 in ``_attend``) and the float32 ``unembed`` (2·B·S·d·vocab, ×3
-    with its backward) at the float32 rate, the rest in ``cfg.dtype``.
-    Returns ``{"low": operations in cfg.dtype, "f32": float32 ones}``."""
-    from repro_torch.models.transformer import layer_specs
-
-    passes = 4 if cfg.remat else 3
-    d, H, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
-    body = lm_prefill_flops(cfg, B, S) - 2 * B * d * cfg.vocab
-    qk = sum(2 * H * hd * B * sum(min(p + 1, s.window or S) for p in range(S))
-             for s in layer_specs(cfg) if s.kind in ("attn", "hybrid"))
-    return {"low": passes * (body - qk),
-            "f32": passes * qk + 3 * 2 * B * S * d * cfg.vocab}
-
-
-def lm_optimizer_bytes(model) -> int:
-    """AdamW's bytes: each weight, its gradient and its float32 moments
-    read once, the weight and the moments written once."""
-    return sum(p.numel() * (3 * p.element_size() + 16)
-               for p in model.parameters())
 
 
 def phase_lm_train_group(seed: int, power: str) -> None:
@@ -3394,7 +3379,10 @@ def phase_lm_train(seed: int, power: str) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import synthetic_batch
-    from repro_torch.launch.roofline import BF16_DENSE_FLOPS_PER_S
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.roofline import (
+        lm_optimizer_bytes, lm_train_bound_ms, lm_train_flops,
+    )
 
     t_phase = time.perf_counter()
     phase_lm_train_group(seed, power)
@@ -3406,7 +3394,18 @@ def phase_lm_train(seed: int, power: str) -> dict:
     model = first["model"]
     n_params = sum(p.numel() for p in model.parameters())
     flops = lm_train_flops(cfg, B, S)
-    opt_bytes = lm_optimizer_bytes(model)
+    opt_bytes = lm_optimizer_bytes(cfg)
+    cell = run_cell(cfg.name, f"train_{S}", cfg=cfg, mesh_shape=(1, 1),
+                    shape_info=dict(seq_len=S, global_batch=B, kind="train"))
+    opt = first["opt"]
+    held = tensor_bytes(list(model.parameters()) + list(opt["mu"].values())
+                        + list(opt["nu"].values()) + [opt["step"]]
+                        + list(batch.values()))
+    check(cell["argument_bytes"] == held,
+          f"LM 18(b): the dry run's one-GPU cell prices {cell['argument_bytes']}"
+          f" bytes of arguments, the weights, moments, step and batch on the "
+          f"card are {held}")
+    del opt
     kept = [p.detach().cpu() for p in model.parameters()]
     del first["model"], first["opt"], first["step"], model
     torch.cuda.empty_cache()
@@ -3421,9 +3420,7 @@ def phase_lm_train(seed: int, power: str) -> dict:
 
     losses = first["losses"].tolist()
     median_ms = statistics.median(first["ms"][1:])
-    bound = dict(low_ms=flops["low"] / BF16_DENSE_FLOPS_PER_S * 1e3,
-                 f32_ms=flops["f32"] / F32_FLOPS_PER_S * 1e3,
-                 bytes_ms=opt_bytes / HBM_BYTES_PER_S * 1e3)
+    bound = lm_train_bound_ms(cfg, B, S)
     bound_ms = sum(bound.values())
     out = dict(arch=cfg.name, layers=cfg.n_layers, params=n_params,
                batch=B, seq=S, steps=n, losses=losses,
@@ -3432,6 +3429,8 @@ def phase_lm_train(seed: int, power: str) -> dict:
                tok_s=B * S / median_ms * 1e3, bound_ms=bound_ms,
                bound_terms_ms=bound, flops=flops, optimizer_bytes=opt_bytes,
                peak_bytes=first["peak"], second_peak_bytes=second["peak"],
+               dryrun_argument_bytes=cell["argument_bytes"],
+               dryrun_peak_bytes_model=cell["peak_bytes_model"],
                init_s=first["init_s"], same_loss_bits=same_loss,
                leaves_differ=differ, profile=prof,
                seconds=time.perf_counter() - t0)
@@ -3448,8 +3447,10 @@ def phase_lm_train(seed: int, power: str) -> dict:
           f"bytes at 3.35e12/s {bound['bytes_ms']:.3f} ms); one step "
           f"profiled: {prof['device_ops']} device ops, busy "
           f"{prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms (idle "
-          f"{prof['idle']:.4f}); peak device memory {first['peak']} bytes; "
-          f"second run: same loss bits {same_loss}, {len(differ)} weight "
+          f"{prof['idle']:.4f}); peak device memory {first['peak']} bytes "
+          f"(the dry run's one-GPU cell: {cell['argument_bytes']} bytes of "
+          f"arguments, the weights, moments, step and batch on the card; "
+          f"peak_bytes_model {cell['peak_bytes_model']}); second run: same loss bits {same_loss}, {len(differ)} weight "
           f"leaves differ; weights drawn in {first['init_s']:.1f} s; "
           f"{out['seconds']:.1f} s; card {power}")
     for op, count, ms in prof["top"]:

@@ -35,3 +35,21 @@ def synthetic_batch(cfg, step: int, seq_len: int, global_batch: int,
         )
         batch["media"] = torch.from_numpy(media).to(device, cfg.dtype)
     return batch
+
+
+def batch_specs(cfg, seq_len: int, global_batch: int,
+                with_media: bool | None = None) -> dict[str, torch.Tensor]:
+    """``synthetic_batch``'s tensors on ``meta``: their shapes and dtypes,
+    nothing allocated (the dry run's input specs)."""
+    def s(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    out = dict(
+        tokens=s((global_batch, seq_len), torch.int32),
+        labels=s((global_batch, seq_len), torch.int32),
+    )
+    use_media = cfg.n_media_tokens if with_media is None else with_media
+    if use_media:
+        out["media"] = s((global_batch, cfg.n_media_tokens, cfg.d_model),
+                         cfg.dtype)
+    return out

@@ -11,7 +11,9 @@ through the file-based coordinator barriers, or, with
 :func:`repro_torch.launch.mesh.run_mesh` runs the in-memory engine as a
 mesh over ``torch.distributed``, one process a shard (gloo on the CPU,
 NCCL with one GPU a rank). :mod:`repro_torch.launch.dryrun` prices the
-paper's GraphD cell a GPU of such a mesh from the partition's shape alone.
+paper's GraphD cell and the LM cells a GPU of a 256- or 512-GPU mesh from
+the shapes alone (:mod:`repro_torch.launch.lm_mesh` holds the LM sharding
+rules).
 """
 
 #: the socket transport's public names, all in ``repro_torch.launch.net``

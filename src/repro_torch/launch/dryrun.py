@@ -1,28 +1,49 @@
-"""The dry-run GraphD cell: what one PageRank superstep costs a GPU of an
-n-GPU mesh at the paper's own sizes, from the partition's shape alone.
+"""The dry run: what a step of each (arch × shape) LM cell, and one
+PageRank superstep of the paper's GraphD cell, costs a GPU of a 256- or
+512-GPU mesh, from the shapes alone.
 
-The reference (``repro/launch/dryrun.py::run_graphd_cell``) lowers and
-compiles one superstep over 256 TPU chips (512 for ``multi_pod``) with
-``ShapeDtypeStruct`` inputs and reads XLA's cost and memory analyses. The
-port has no compiler to ask, so it counts what ``GraphDEngine(mesh=)`` does
-a rank a superstep: the bytes each collective hands the backend (what
-``core.collectives.ProcessMesh`` counts), the HBM bytes the superstep's
-kernels must move, the operations they do, and the device memory a rank
-holds. It is host arithmetic: it builds no device tensor (the abstract
-partition lies on ``meta``), starts no process group and imports no
-``torch.distributed`` backend.
+The reference (``repro/launch/dryrun.py``) lowers and compiles each cell on
+its (16, 16) and (2, 16, 16) meshes with ``ShapeDtypeStruct`` inputs and
+reads XLA's memory and cost analyses and the collectives of the HLO. The
+port has no compiler to ask, so it counts. It is host arithmetic: it
+builds no device tensor (parameters, caches and partitions lie on
+``meta``), starts no process group and imports no ``torch.distributed``
+backend.
 
-The record has the reference's keys with the same meaning, less
-``lower_s`` and ``compile_s`` (there is nothing to lower or compile), plus
-``P``, ``E_cap``, ``n_blocks`` and ``fits`` (``peak_bytes`` within the
-card's memory, the role of the reference's memory analysis).
+**LM cells** (``run_cell``): ten archs × four ``SHAPES`` × two meshes, the
+reference's 80, of which 14 are its declared skips (``long_500k`` outside
+``LONG_CONTEXT_ARCHS``). The meshes are 256 and 512 H100s in the
+reference's (data, model) layout: its 16-way ``model`` axis spans two
+8-GPU NVLink domains. What is exact, and held to the reference's trees in
+the tests: the sharding specs (``launch/lm_mesh.py``), ``argument_bytes``
+(each argument leaf's bytes over the mesh-axis sizes its spec names), the
+skips, and the useful-work terms. The rest is the port's stated model:
+``flops_per_chip`` and ``bytes_per_chip`` layer by layer
+(``roofline.lm_work``, each product divided by the mesh axes that shard it,
+``_divisor``), the collectives of ``_collectives`` (result-shape bytes, an
+all-reduce counted twice, ring factors ignored, as the reference's HLO
+parser counts them), and ``peak_bytes_model``, the reference's
+``_activation_model_bytes`` added to the arguments.
 
+**The GraphD cell** (``run_graphd_cell``) counts what
+``GraphDEngine(mesh=)`` does a rank a superstep: the bytes each collective
+hands the backend (what ``core.collectives.ProcessMesh`` counts), the HBM
+bytes the superstep's kernels must move, the operations they do, and the
+device memory a rank holds.
+
+The records have the reference's keys with the same meaning, less
+``lower_s``, ``compile_s`` and ``cpu_temp_bytes`` (nothing is compiled),
+plus ``fits`` (the peak within the card's 80 GB, the role of the
+reference's memory analysis); an LM record also has
+``f32_flops_per_chip``, the float32 share of its operations, and a
+GraphD one ``P``, ``E_cap`` and ``n_blocks``.
+
+    python -m repro_torch.launch.dryrun --arch minitron-4b --shape train_4k
+    python -m repro_torch.launch.dryrun --all [--multipod]
+        [--link-bytes-per-s RATE] [--out FILE]
     python -m repro_torch.launch.dryrun --graphd [--multipod]
         [--scale clueweb|webuk] [--mode recoded] [--edge-block 4096]
         [--link-bytes-per-s RATE] [--out FILE]
-
-The language-model cells (``--arch``/``--shape``/``--all``) wait for
-ROADMAP item 12.
 """
 
 from __future__ import annotations
@@ -31,10 +52,18 @@ import argparse
 import json
 import math
 import os
+import traceback
 
-from repro_torch.launch.roofline import (
-    HBM_CAPACITY_BYTES, edge_combine_work, roofline_terms,
+from repro_torch.launch.lm_mesh import (
+    abstract_mesh, batch_specs_tree, cache_leaf_spec, cache_specs_tree,
+    dp_axes, make_production_mesh, param_specs, shard_count, spec_axes,
 )
+from repro_torch.launch.roofline import (
+    HBM_CAPACITY_BYTES, edge_combine_work, lm_optimizer_bytes, lm_work,
+    roofline_terms, train_passes,
+)
+from repro_torch.models import sharding
+from repro_torch.models.sharding import act_spec, logical_spec
 
 #: |V|, |E| of the paper's Table 1
 SIZES = dict(
@@ -234,6 +263,379 @@ def run_graphd_cell(multi_pod: bool = False, scale: str = "clueweb",
     )
 
 
+# --------------------------------------------------------------------------
+# the LM cells
+# --------------------------------------------------------------------------
+
+#: Whisper's decoder context; its cross K/V cover the shape's ``seq_len``
+#: encoder frames
+WHISPER_SELF_LEN = 448
+#: the training step's four float32 metrics (loss, aux, grad_norm, lr)
+METRIC_BYTES = 4 * 4
+#: the layers' output projections, whose partial sums a TP 'model' axis
+#: reduces (row-parallel: 'model' on their input dimension)
+TP_OUT = ("wo", "out_proj", "ws_down", "w_down")
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def _media_len(cfg, S: int) -> int:
+    """Media tokens a sample: Whisper's encoder frames are the shape's
+    sequence length; the VLM's patches its config's."""
+    return S if cfg.family == "audio" else cfg.n_media_tokens
+
+
+def cell_arguments(cfg, info: dict, mesh, param_mode: str = "train"):
+    """A cell's arguments as the reference's ``lower_cell`` passes them,
+    ``{group: {name: (meta tensor, spec)}}``: ``params`` (and for
+    ``train`` the optimizer's ``mu``, ``nu``, ``step`` and, with
+    ``grad_compress``, ``err``, sharded as the weights, and the batch:
+    tokens, labels and the media of a media arch); for ``prefill`` the
+    parameters, the caches, the tokens and the media of ``audio`` and
+    ``vlm``; for ``decode`` the parameters, the caches, the token and its
+    position. Whisper's decoder holds 448 positions, its cross caches the
+    shape's frames. ``info["cache_len"]``, where given, sets the caches'
+    positions (the smoke's prefill caches hold its decode steps too)."""
+    import torch
+
+    from repro_torch.data.tokens import batch_specs
+    from repro_torch.models.transformer import abstract_params
+    from repro_torch.serving.cache import abstract_caches, cache_leaves
+
+    S, B, kind = info["seq_len"], info["global_batch"], info["kind"]
+    audio = cfg.family == "audio"
+    meta = lambda shape, dtype: torch.empty(shape, dtype=dtype, device="meta")
+    params = abstract_params(cfg)
+    pspecs = param_specs(cfg, mesh, param_mode)
+    out = {"params": {k: (t, pspecs[k]) for k, t in params.items()}}
+    if kind == "train":
+        states = ["mu", "nu"] + (["err"] if cfg.grad_compress else [])
+        for st in states:
+            out[st] = {k: (meta(t.shape, torch.float32), pspecs[k])
+                       for k, t in params.items()}
+        out["step"] = {"step": (meta((), torch.int32), ())}
+        batch = batch_specs(cfg, S, B)
+        if audio:
+            batch["media"] = meta((B, S, cfg.d_model), cfg.dtype)
+        bspecs = batch_specs_tree(batch, mesh)
+        out["batch"] = {k: (t, bspecs[k]) for k, t in batch.items()}
+        return out
+    self_len = WHISPER_SELF_LEN if audio else S
+    caches = abstract_caches(cfg, B, info.get("cache_len", self_len),
+                             n_media=S if audio else None)
+    cspecs = cache_specs_tree(caches, mesh)
+    out["caches"] = {k: (t, cspecs[k]) for k, t in cache_leaves(caches)}
+    if kind == "prefill":
+        toks = meta((B, self_len), torch.int32)
+        out["tokens"] = {"tokens": (toks, batch_specs_tree(toks, mesh))}
+        if cfg.family in ("audio", "vlm"):
+            media = meta((B, _media_len(cfg, S), cfg.d_model), cfg.dtype)
+            out["media"] = {"media": (media, batch_specs_tree(media, mesh))}
+    else:
+        tok = meta((B, 1), torch.int32)
+        out["tokens"] = {"token": (tok, batch_specs_tree(tok, mesh)),
+                         "pos": (meta((), torch.int32), ())}
+    return out
+
+
+def sharded_bytes(group: dict, mesh) -> int:
+    """A GPU's bytes of ``{name: (tensor, spec)}``: each leaf's bytes over
+    the product of the mesh-axis sizes its spec names."""
+    return sum(_nbytes(t) // shard_count(spec, mesh)
+               for t, spec in group.values())
+
+
+def _activation_model_bytes(cfg, info, n_chips: int) -> int:
+    """Remat activation model: G checkpointed layer inputs + ~4 working
+    buffers of one pattern group, batch/seq sharded across the mesh."""
+    S, B, kind = info["seq_len"], info["global_batch"], info["kind"]
+    if kind != "train":
+        S_act = 1 if kind == "decode" else S
+    else:
+        S_act = S
+    tokens_per_chip = max(B * S_act // n_chips, 1)
+    a = tokens_per_chip * cfg.d_model * 2  # bf16 layer input
+    G = cfg.n_pattern_groups
+    work = 4 * a * len(cfg.pattern) + tokens_per_chip * max(
+        cfg.d_ff, cfg.moe_dff, cfg.d_ssm_inner if cfg.ssm_state else 0, 1
+    ) * 2
+    logits = tokens_per_chip * cfg.vocab * 4 // 16  # vocab TP-sharded
+    return int(G * a + work + logits)
+
+
+def _fsdp(param_mode: str) -> tuple:
+    """The mesh axes a weight's spec shards it over for storage only (FSDP:
+    gathered before each use, the work not split): 'data' under the
+    ``train`` specs; none under ``serve``, whose 'data' axis splits the
+    expert banks' ff dimension (tensor parallel, as 'model' does)."""
+    return ("data",) if param_mode == "train" else ()
+
+
+def _tp_axes(spec, param_mode: str) -> set:
+    """The mesh axes that split the product of a weight with ``spec``."""
+    return spec_axes(spec) - set(_fsdp(param_mode))
+
+
+def _divisor(w, pspecs: dict, mesh, kind: str, param_mode: str,
+             flat_heads: bool) -> int:
+    """How many GPUs share one product of ``roofline.lm_work``, under the
+    rules set: the batch over the DP axes where B divides; a weight's
+    product over its spec's TP axes (``_tp_axes``); the attention logits
+    and PV, in decode, as the K/V cache is sharded (``cache_leaf_spec``:
+    the batch over the DP axes, the sequence over 'model', the reference's
+    sequence-parallel decode), else over 'model' on the KV heads (grouped:
+    Hkv, which a 16-way axis does not divide for 8 or fewer) or, with
+    ``flat_heads`` (the reference's ``set_flat_heads(True)``: K and V
+    repeated to H heads), on the H query heads; the MoE buffer as
+    ``act_ecd`` pins it (E over 'model', C not split: every DP replica
+    computes it) and over the banks' other TP axes; the SSD scan over the
+    batch and its heads; the logits as ``act_logits`` pins them. What no
+    axis shards is computed on every GPU."""
+    if w.kind == "w":
+        tp = _tp_axes(pspecs[w.name], param_mode)
+        batch = spec_axes(logical_spec(w.dims, "batch")) - tp
+        return mesh.axis_size(tuple(tp | batch))
+    if w.kind == "attn":
+        B, H, Hkv, Sq, T, _ = w.dims
+        if kind == "decode":
+            spec = cache_leaf_spec("k", (B, T), mesh)
+        elif flat_heads:
+            spec = logical_spec((B, H, Sq, T), "batch", "model", None, None)
+        else:
+            spec = logical_spec((B, Hkv, H // Hkv, Sq, T), "batch", "model",
+                                None, None, None)
+    elif w.kind == "moe":
+        spec = act_spec("ecd", w.dims)
+        banks = _tp_axes(pspecs[f"{w.name}.w_gate"], param_mode)
+        return shard_count(spec, mesh) * mesh.axis_size(
+            tuple(banks - spec_axes(spec)))
+    elif w.kind == "scan":
+        spec = logical_spec(w.dims, "batch", "model")
+    else:
+        spec = act_spec("logits", w.dims)
+    return shard_count(spec, mesh)
+
+
+def _collectives(cfg, info: dict, mesh, pspecs: dict, params: dict,
+                 work: list, param_mode: str) -> dict:
+    """A GPU's collective bytes a step, by the reference's op names, as its
+    HLO parser counts them (result-shape bytes; an all-reduce twice):
+
+    * ``all-gather``: every leaf whose spec shards it over an FSDP axis
+      (``_fsdp``: 'data' under the ``train`` specs, none under ``serve``),
+      gathered once a pass (forward; with remat the recomputation;
+      backward): its bytes over its spec's other axes;
+    * ``reduce-scatter`` (train): those leaves' gradients, each GPU's
+      shard (the leaf's bytes over all its spec's axes); on a mesh with a
+      'pod' axis, ``all-reduce`` of that shard over the pods;
+      ``all-reduce`` of the other leaves' gradients over the DP axes;
+    * ``all-reduce`` (TP): each output projection (``TP_OUT``) with
+      'model' on its input dimension sums its partial products over
+      'model', once a pass, in ``cfg.dtype``: X = the projection's
+      (B, S, d) output on a GPU. Where ``act_btd`` (``fit``) shards the
+      sequence over 'model' (``cfg.seq_shard``), that is a
+      ``reduce-scatter`` of X over 'model' and an ``all-gather`` of X
+      back for the next layer; else an all-reduce of X;
+    * ``all-reduce`` (serve): where the expert banks split their ff
+      dimension over an axis beyond the buffer's (the ``serve`` specs'
+      'data'), each MoE layer sums its experts' partial outputs over it:
+      a GPU's slice of the (E, C, d) buffer;
+    * ``all-reduce`` (decode): where the K/V cache's sequence axis is
+      sharded over 'model', each attention layer combines its partial
+      softmax over it: the (B, 1, H, hd) partial output in ``cfg.dtype``
+      and its float32 running max and sum a (batch, head), over the
+      batch's DP split;
+    * ``all-to-all``: each MoE layer's dispatch and combine over 'model'
+      move a GPU's slice of the (E, C, d) buffer, once each a pass.
+
+    The gradient compressor (``grad_compress``) runs after the reduction
+    in the reference's step (it quantizes the summed gradients), so it
+    changes no wire bytes here."""
+    kind = info["kind"]
+    passes = (train_passes(cfg) - 1) if kind == "train" else 1
+    model = mesh.axis_size("model")
+    fsdp_axes = [a for a in _fsdp(param_mode) if mesh.axis_size(a) > 1]
+    dp = mesh.axis_size(tuple(a for a in ("pod", "data")
+                              if a in mesh.axis_names))
+    isz = cfg.dtype.itemsize
+    by = dict.fromkeys(("all-gather", "all-reduce", "reduce-scatter",
+                        "all-to-all"), 0)
+    for name, t in params.items():
+        spec, nb = pspecs[name], _nbytes(t)
+        fsdp = bool(spec_axes(spec) & set(fsdp_axes))
+        if fsdp:
+            by["all-gather"] += passes * nb // shard_count(spec, mesh,
+                                                           fsdp_axes)
+        if kind != "train":
+            continue
+        shard = nb // shard_count(spec, mesh)
+        if fsdp:
+            by["reduce-scatter"] += shard
+            if "pod" in mesh.axis_names and mesh.axis_size("pod") > 1:
+                by["all-reduce"] += 2 * shard
+        elif dp > 1:
+            by["all-reduce"] += 2 * shard
+    for w in work:
+        if w.kind == "moe":
+            ecd = act_spec("ecd", w.dims)
+            buf = math.prod(w.dims) * isz // shard_count(ecd, mesh)
+            if model > 1:
+                by["all-to-all"] += passes * 2 * buf
+            banks = _tp_axes(pspecs[f"{w.name}.w_gate"], param_mode)
+            if banks - spec_axes(ecd):
+                by["all-reduce"] += passes * 2 * buf
+        if w.kind == "attn" and kind == "decode" and not w.f32:
+            B, H, _, Sq, T, hd = w.dims
+            spec = cache_leaf_spec("k", (B, T), mesh)
+            if spec[1] is not None:
+                part = B * Sq * H * (hd * isz + 2 * 4)
+                by["all-reduce"] += 2 * part // shard_count(spec[:1], mesh)
+        if (w.kind != "w" or w.name.rsplit(".", 1)[-1] not in TP_OUT
+                or len(params[w.name].shape) != 2 or model == 1
+                or pspecs[w.name][0] != "model"):
+            continue
+        din, d = params[w.name].shape
+        n_tok = w.ops // (2 * din * d)
+        B = w.dims[0]
+        btd = act_spec("btd", (B, n_tok // B, d))
+        x = n_tok * d * isz // shard_count((btd[0],), mesh)
+        if btd[1] is not None:
+            by["reduce-scatter"] += passes * x // shard_count((btd[1],),
+                                                              mesh)
+            by["all-gather"] += passes * x
+        else:
+            by["all-reduce"] += passes * 2 * x
+    return {k: v for k, v in by.items() if v}
+
+
+def _mesh_name(mesh, multi_pod: bool, mesh_shape) -> str:
+    if mesh_shape is None:
+        return "multipod" if multi_pod else "singlepod"
+    return "x".join(str(s) for s in mesh.shape)
+
+
+def run_cell(arch: str, shape: str, multi_pod: bool = False, cfg=None,
+             param_mode: str = "train", variant: str = "", *,
+             mesh_shape=None, shape_info: dict | None = None,
+             link_bytes_per_s: float | None = None,
+             flat_heads: bool = False) -> dict:
+    """One (arch × shape) cell a GPU of the (16, 16) mesh, or (2, 16, 16)
+    for ``multi_pod``, or ``mesh_shape`` (e.g. ``(1, 1)``: one GPU); the
+    shape ``SHAPES[shape]`` or ``shape_info`` (``seq_len``,
+    ``global_batch``, ``kind``, optionally ``cache_len``), which skips
+    ``cell_supported``'s check. ``param_mode="serve"`` takes the
+    weight-stationary specs; ``flat_heads`` prices the attention of
+    ``train`` and ``prefill`` as the reference's ``set_flat_heads(True)``
+    runs it (``_divisor``). A skipped cell's record is the reference's.
+
+    A GPU's operations are ``roofline.lm_work``'s, each over its
+    ``_divisor``, a training step's passes ``train_passes`` times (the
+    ``unembed`` three times); its HBM bytes the same products'
+    activations, each weight read once a pass at the share a GPU holds
+    once its FSDP axes are gathered (``_fsdp``), and AdamW's bytes over
+    the GPU's shards (``train``) or the GPU's share of the caches once
+    (``prefill`` writes them, ``decode`` reads them: the only count of
+    the K/V that decode attends)."""
+    from repro_torch.configs import SHAPES, cell_supported, get_config
+
+    mesh = (make_production_mesh(multi_pod=multi_pod) if mesh_shape is None
+            else abstract_mesh(mesh_shape))
+    mesh_name = _mesh_name(mesh, multi_pod, mesh_shape)
+    if shape_info is None:
+        ok, why = cell_supported(arch, shape)
+        if not ok:
+            return dict(arch=arch, shape=shape, mesh=mesh_name, ok=False,
+                        skipped=True, reason=why)
+        info = SHAPES[shape]
+    else:
+        info = shape_info
+    cfg = cfg or get_config(arch)
+    S, B, kind = info["seq_len"], info["global_batch"], info["kind"]
+    dp = dp_axes(mesh)
+    with sharding.rules(batch=dp if len(dp) > 1 else dp[0], model="model",
+                        seq="model" if cfg.seq_shard else None, mesh=mesh):
+        args = cell_arguments(cfg, info, mesh, param_mode)
+        arg_bytes = sum(sharded_bytes(g, mesh) for g in args.values())
+        if kind == "train":
+            out_bytes = arg_bytes - sharded_bytes(args["batch"], mesh) \
+                + METRIC_BYTES
+        else:
+            logits = B * cfg.vocab * 4
+            out_bytes = sharded_bytes(args["caches"], mesh) + logits \
+                // shard_count(batch_specs_tree((B, cfg.vocab), mesh), mesh)
+        params = {k: t for k, (t, _) in args["params"].items()}
+        pspecs = {k: s for k, (_, s) in args["params"].items()}
+        audio = cfg.family == "audio"
+        tok_len = WHISPER_SELF_LEN if audio and kind == "prefill" else S
+        work = lm_work(cfg, B, tok_len, kind, _media_len(cfg, S),
+                       info.get("cache_len", WHISPER_SELF_LEN if audio
+                                else S))
+        flops = f32 = act = 0.0
+        for w in work:
+            mult = 3 if (kind == "train" and w.kind == "unembed") else (
+                train_passes(cfg) if kind == "train" else 1)
+            div = _divisor(w, pspecs, mesh, kind, param_mode, flat_heads)
+            flops += mult * w.ops / div
+            f32 += mult * w.ops / div if w.f32 else 0.0
+            act += mult * w.nbytes / div
+        coll = _collectives(cfg, info, mesh, pspecs, params, work,
+                            param_mode)
+    reads = train_passes(cfg) if kind == "train" else 1
+    weights = reads * sum(_nbytes(t) // shard_count(pspecs[k], mesh,
+                                                    _fsdp(param_mode))
+                          for k, t in params.items())
+    if kind == "train":
+        state = lm_optimizer_bytes(cfg, {k: shard_count(s, mesh)
+                                         for k, s in pspecs.items()})
+    else:
+        state = sharded_bytes(args["caches"], mesh)
+    nbytes = act + weights + state
+    coll_total = sum(coll.values())
+    peak = arg_bytes + _activation_model_bytes(cfg, info, mesh.size)
+    terms = roofline_terms(
+        cfg, info, flops=flops, bytes_accessed=nbytes,
+        collective_bytes=coll_total, n_chips=mesh.size,
+        link_bytes_per_s=link_bytes_per_s, f32_flops=f32)
+    rec = dict(
+        arch=arch, shape=shape, mesh=mesh_name, ok=True,
+        flops_per_chip=flops,
+        f32_flops_per_chip=f32,
+        bytes_per_chip=nbytes,
+        collective_bytes_per_chip=coll_total,
+        collective_breakdown=coll,
+        argument_bytes=arg_bytes,
+        output_bytes=out_bytes,
+        peak_bytes_model=peak,
+        fits=peak <= HBM_CAPACITY_BYTES,
+        **terms,
+    )
+    if variant:
+        rec["variant"] = variant
+    return rec
+
+
+def cell_line(rec: dict) -> str:
+    """One line of an LM record."""
+    head = (f"{rec['arch']} x {rec['shape']} on {rec['mesh']}"
+            + (f" {rec['variant']}" if rec.get("variant") else ""))
+    if not rec.get("ok"):
+        return f"{head}: " + (f"SKIP ({rec['reason']})" if rec.get("skipped")
+                              else f"FAIL ({rec.get('error')})")
+    t_coll = rec["t_collective_s"]
+    return (f"{head}: args {rec['argument_bytes']} B, peak model "
+            f"{rec['peak_bytes_model']} B, fits {rec['fits']}; "
+            f"{rec['flops_per_chip']:.6g} operations "
+            f"({rec['f32_flops_per_chip']:.6g} float32), "
+            f"{rec['bytes_per_chip']:.6g} HBM bytes, "
+            f"{rec['collective_bytes_per_chip']} collective bytes; "
+            f"t_compute {rec['t_compute_s'] * 1e3:.4f} ms, t_memory "
+            f"{rec['t_memory_s'] * 1e3:.4f} ms, t_collective "
+            + (f"{t_coll * 1e3:.4f} ms" if t_coll is not None else "none")
+            + f"; useful/counted {rec['useful_flops_ratio']:.4f}")
+
+
 def summary(rec: dict) -> str:
     """One line of a record: the shape, a rank's bytes to its backend, and
     its resident bytes without ``dst_order`` and on the torch backend
@@ -258,6 +660,8 @@ def summary(rec: dict) -> str:
 
 
 def main(argv=None) -> int:
+    from repro_torch.configs import ARCHS, SHAPES
+
     ap = argparse.ArgumentParser(prog="repro_torch.launch.dryrun")
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
@@ -272,28 +676,54 @@ def main(argv=None) -> int:
                          "ring); none: no collective term")
     ap.add_argument("--out", default="dryrun_results.json")
     args = ap.parse_args(argv)
-    if not args.graphd:
-        raise NotImplementedError(
-            "the language-model dry-run cells (--arch/--shape/--all) wait "
-            "for ROADMAP item 12; the port prices --graphd only")
+    if not (args.graphd or args.all or (args.arch and args.shape)):
+        ap.error("--arch and --shape, --all, or --graphd")
 
     results = []
     if os.path.exists(args.out):
         with open(args.out) as f:
             results = json.load(f)
+    done = {(r["arch"], r["shape"], r["mesh"]) for r in results}
 
-    rec = run_graphd_cell(args.multipod, scale=args.scale, mode=args.mode,
-                          edge_block=args.edge_block,
-                          link_bytes_per_s=args.link_bytes_per_s)
-    results[:] = [r for r in results
-                  if (r["arch"], r["shape"], r["mesh"])
-                  != (rec["arch"], rec["shape"], rec["mesh"])]
-    results.append(rec)
-    with open(args.out, "w") as f:
-        json.dump(results, f, indent=1)
-    print(json.dumps(rec, indent=1))
-    print(summary(rec))
-    return 0
+    def record(rec):
+        results[:] = [r for r in results
+                      if (r["arch"], r["shape"], r["mesh"])
+                      != (rec["arch"], rec["shape"], rec["mesh"])]
+        results.append(rec)
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1)
+
+    if args.graphd:
+        rec = run_graphd_cell(args.multipod, scale=args.scale,
+                              mode=args.mode, edge_block=args.edge_block,
+                              link_bytes_per_s=args.link_bytes_per_s)
+        record(rec)
+        print(json.dumps(rec, indent=1))
+        print(summary(rec))
+        return 0
+
+    def one(arch, shape):
+        mesh_name = "multipod" if args.multipod else "singlepod"
+        if (arch, shape, mesh_name) in done:
+            print(f"[skip] {(arch, shape, mesh_name)} already done")
+            return
+        try:
+            rec = run_cell(arch, shape, args.multipod,
+                           link_bytes_per_s=args.link_bytes_per_s)
+        except Exception as e:  # a cell's fault is recorded; the sweep goes on
+            traceback.print_exc()
+            rec = dict(arch=arch, shape=shape, mesh=mesh_name, ok=False,
+                       error=f"{type(e).__name__}: {e}")
+        record(rec)
+        print(cell_line(rec), flush=True)
+
+    if args.all:
+        for arch in ARCHS:
+            for shape in SHAPES:
+                one(arch, shape)
+    else:
+        one(args.arch, args.shape)
+    return 0 if all(r.get("ok") or r.get("skipped") for r in results) else 1
 
 
 if __name__ == "__main__":

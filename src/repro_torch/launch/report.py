@@ -1,7 +1,8 @@
-"""Render dry-run results (``launch/dryrun.py``'s JSON) as the dry-run and
-roofline tables: the reference's formatting (``repro/launch/report.py``).
-The port's records have no compile time (nothing is compiled; the column
-shows "–") and may have no collective term (no link rate: "–").
+"""Render dry-run results (``launch/dryrun.py``'s JSON: LM and GraphD
+records) as the dry-run and roofline tables, a pair a mesh: the
+reference's formatting (``repro/launch/report.py``). The port's records
+have no compile time (nothing is compiled; the column shows "–") and may
+have no collective term (no link rate: "–").
 
     PYTHONPATH=src python -m repro_torch.launch.report dryrun_results.json
 """

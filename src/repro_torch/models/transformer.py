@@ -182,6 +182,14 @@ def param_dtype(cfg: ModelConfig, name: str) -> torch.dtype:
     return torch.float32 if name.rsplit(".", 1)[-1] in FLOAT32_LEAVES else cfg.dtype
 
 
+def abstract_params(cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """Every weight as a ``meta`` tensor of its shape and dtype: nothing
+    allocated (the dry run's)."""
+    return {name: torch.empty(shape, dtype=param_dtype(cfg, name),
+                              device="meta")
+            for name, shape in param_shapes(cfg).items()}
+
+
 def _param(t: torch.Tensor) -> nn.Parameter:
     """Weights are frozen: serving builds no autograd graph. A training
     step turns their gradients on for its own forward and backward."""

@@ -6,6 +6,8 @@ of Whisper's decoder layers)."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.device import resolve_device
@@ -53,6 +55,28 @@ def make_caches(cfg: ModelConfig, B: int, max_len: int,
     n_media = n_media if n_media is not None else cfg.n_media_tokens
     return [_layer_cache(cfg, spec, B, max_len, n_media, device)
             for spec in layer_specs(cfg)]
+
+
+def abstract_caches(cfg: ModelConfig, B: int, max_len: int,
+                    n_media: int | None = None) -> list[LayerCache]:
+    """``make_caches`` on ``meta``: the shapes and dtypes, nothing
+    allocated (the dry run's)."""
+    return make_caches(cfg, B, max_len, n_media, device="meta")
+
+
+def cache_leaves(caches: list[LayerCache]):
+    """``(name, tensor)`` of every cache tensor, named
+    ``layers.{i}.{field}.{leaf}`` after the cache's fields (``kv.k``,
+    ``kv.c_kv``, ``ssm.state``, ``xkv.v``, ...)."""
+    for i, c in enumerate(caches):
+        for field in dataclasses.fields(c):
+            sub = getattr(c, field.name)
+            if sub is None:
+                continue
+            for f in dataclasses.fields(sub):
+                t = getattr(sub, f.name)
+                if isinstance(t, torch.Tensor):
+                    yield f"layers.{i}.{field.name}.{f.name}", t
 
 
 def cache_bytes(caches: list[LayerCache]) -> int:

@@ -312,7 +312,7 @@ def test_backend_must_run_the_mode():
 
 
 # --------------------------------------------------------------------------
-# the command lines, the report, and what waits for item 12
+# the command lines and the report
 # --------------------------------------------------------------------------
 
 def test_cli_writes_and_prints_the_records(tmp_path, capsys):
@@ -334,16 +334,3 @@ def test_cli_writes_and_prints_the_records(tmp_path, capsys):
                       str(tmp_path / "p.json")]) == 0
     with open(tmp_path / "p.json") as fh:
         assert [r["variant"] for r in json.load(fh)] == ["C1", "C3"]
-
-
-def test_language_model_cells_wait_for_item_12(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        roofline.roofline_terms(object(), {}, flops=1.0, bytes_accessed=1.0,
-                                collective_bytes=0.0, n_chips=1)
-    for argv in (["--arch", "minitron-4b", "--shape", "train_4k"],
-                 ["--all"], ["--all", "--multipod"]):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            dryrun.main(argv + ["--out", str(tmp_path / "x.json")])
-    for tag in ("A1", "B2"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            perf.main([tag, "--out", str(tmp_path / "y.json")])
