@@ -153,8 +153,10 @@ Phases, each of which ends the run non-zero on a failure:
     group plus the prologue (Whisper: 1 decoder and 1 encoder layer over
     its 1,500 frames), in float32: a prefill of 16 tokens and 4 decode
     steps (B = 2) on the card against the CPU within 1e-4 of the largest
-    |logit|; (b) each in bf16 at full width and depth (the VLM at 2 of its
-    20 pattern groups) serving 4 requests of 1,100-token prompts (Whisper:
+    |logit|; (b) each in bf16 at full width and half depth
+    (``LM_KIND_GROUPS``: 14 of deepseek's 27 layers, 32 of mamba2's 64, 16
+    of hymba's 32, 16 + 16 of Whisper's 32 + 32; the VLM at 2 of its 20
+    pattern groups) serving 4 requests of 1,100-token prompts (Whisper:
     64 tokens, its 448-position self-cache and 1,500 frames; the VLM 1,600
     patches), 32 tokens each: two greedy runs with identical tokens, the
     tokens changed by other media, the bf16 gap of decode to ``forward``
@@ -179,7 +181,22 @@ Phases, each of which ends the run non-zero on a failure:
     and the ``unembed``, at the float32 rate, the optimizer's bytes at the
     HBM rate; ``launch/roofline.py``'s counts), one step profiled, peak
     device memory beside the dry run's one-GPU cell, whose argument bytes
-    must be the weights, moments, step and batch on the card.
+    must be the weights, moments, step and batch on the card;
+19. the LM train step on a (data, model) process mesh
+    (``launch/lm_mesh.py::run_train_mesh``, no kernel of its own): (a)
+    gloo ×8 sharing this card as a (2, 4) mesh, minitron-4b at full width
+    (bf16, remat, the first ``LM_MESH_GROUPS`` of its 32 layers) taking one
+    AdamW step on 2 × 1,024 tokens, against the same step in this process:
+    the loss within 1e-3 and every weight within 1e-2 (the reference's
+    bars, tests/test_distributed.py:168-172), the step run twice from the
+    same state on every rank with the same bits; (b) one layer at full
+    width in float32 the same way: every gradient leaf within 1e-5 of its
+    largest |g| and the loss within rtol 1e-6 of this process's; (c) NCCL
+    ×1 at (1, 1), held to (a)'s bars. For each rank: its resident bytes,
+    which must equal the dry run's argument bytes a GPU at (2, 4)
+    (``run_cell``), its bytes handed to the backend a mesh axis beside the
+    cell's collective bytes (a ratio, not a gate), its peak allocation, step
+    seconds and start-up.
 
 It prints the launch counts of the main path's runs, and the per-kernel JSON
 line and the device line last. It needs a CUDA device and the CUDA toolkit.
@@ -2845,6 +2862,11 @@ LM_KIND_ARCHS = ("deepseek-v2-lite-16b", "mamba2-2.7b", "hymba-1.5b",
                  "whisper-large-v3", "llama-3.2-vision-90b")
 LM_VLM = "llama-3.2-vision-90b"
 LM_VLM_GROUPS = 2  # 17(b): 10 of its 100 layers; 87.7 B do not fit a card
+#: 17(b)'s depth a kind, in pattern groups: the VLM's (its weights), and
+#: the others at half depth, which phase 19 needed of the smoke's time
+LM_KIND_GROUPS = {"deepseek-v2-lite-16b": 13, "mamba2-2.7b": 32,
+                  "hymba-1.5b": 2, "whisper-large-v3": 16,
+                  LM_VLM: LM_VLM_GROUPS}
 LM_WHISPER_PROMPT = 64
 LM_WHISPER_MAX_LEN = 448  # the decoder's context: its self-cache length
 LM_F32_WEIGHT_LIMIT = 40e9  # 17(b)'s float32 check: weight bytes under this
@@ -3031,10 +3053,10 @@ def _f32_cut(cfg, limit: float | None):
 def phase_lm_serve(label: str, arch: str, seed: int, power: str,
                    f32_limit: float | None = LM_F32_WEIGHT_LIMIT) -> dict:
     """16(b) and 17(b) for one arch at full width in bf16 (weights drawn
-    from ``seed``): 4 requests of 1,100-token prompts, past a 1,024 window
-    and not a multiple of it (Whisper: 64 tokens, a 448-position self-cache
-    and 1,500 frames; the VLM: 1,600 patches, at 2 of its 20 pattern
-    groups), 32 tokens each. Two greedy runs with identical tokens, then a
+    from ``seed``; 17(b) at ``LM_KIND_GROUPS``' depth): 4 requests of
+    1,100-token prompts, past a 1,024 window and not a multiple of it
+    (Whisper: 64 tokens, a 448-position self-cache and 1,500 frames; the
+    VLM: 1,600 patches), 32 tokens each. Two greedy runs with identical tokens, then a
     prefill and 31 decode steps between CUDA events (the same tokens
     again), the times beside their bounds, one decode step profiled, and
     the decode's logits against ``forward`` over the same tokens (printed
@@ -3055,8 +3077,8 @@ def phase_lm_serve(label: str, arch: str, seed: int, power: str,
 
     t0 = time.perf_counter()
     cfg = get_config(arch)
-    if arch == LM_VLM:
-        cfg = cfg.with_groups(LM_VLM_GROUPS)
+    if arch in LM_KIND_GROUPS:
+        cfg = cfg.with_groups(LM_KIND_GROUPS[arch])
     whisper = cfg.n_enc_layers > 0
     B, G = LM_BATCH, LM_GEN
     S = LM_WHISPER_PROMPT if whisper else LM_PROMPT
@@ -3467,6 +3489,219 @@ def phase_lm_train(seed: int, power: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 19: the LM train step on a (data, model) process mesh
+# --------------------------------------------------------------------------
+
+LM_MESH_SHAPE = (2, 4)
+#: 19(a)'s depth: pattern groups (layers) of minitron-4b's 32
+LM_MESH_GROUPS = 2
+LM_MESH_BATCH, LM_MESH_SEQ = 2, 1024
+#: the reference's bars for its sharded step (tests/test_distributed.py:168-172)
+LM_MESH_LOSS_BAR, LM_MESH_PARAM_BAR = 1e-3, 1e-2
+#: 19(b)'s float32 bars, tests/test_torch_train.py's: the loss (relative)
+#: and each gradient leaf (of its largest |g|)
+LM_F32_BAR_MESH, LM_MESH_GRAD_BAR = 1e-6, 1e-5
+LM_MESH_TIMEOUT = 300.0
+
+
+def _host(tensors) -> dict:
+    return {k: v.detach().to("cpu", copy=True) for k, v in tensors}
+
+
+def _one_process(cfg, seed: int, batch: dict, grads: bool) -> dict:
+    """This process's run on the card from ``seed`` (the mesh's ranks draw
+    the same weights from it): one AdamW step (its loss, the weights after
+    it, host copies) or, with ``grads``, one gradient pass (its loss, the
+    gradients)."""
+    import torch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training.train import (
+        compute_grads, init_train_state, make_train_step,
+    )
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, seed, "cuda")
+    out = {}
+    on_card = {k: v.cuda() for k, v in batch.items()}
+    t0 = time.perf_counter()
+    if grads:
+        g, m = compute_grads(model, on_card)
+        out["grads"] = _host(g.items())
+        del g
+    else:
+        model, opt, m = make_train_step(cfg, lm_train_opt())(
+            model, init_train_state(cfg, model), on_card)
+        out["after"] = _host(model.named_parameters())
+        del opt
+    torch.cuda.synchronize()
+    out.update(loss=float(m["loss"]), seconds=time.perf_counter() - t0,
+               peak=torch.cuda.max_memory_allocated())
+    del model, m, on_card
+    torch.cuda.empty_cache()
+    return out
+
+
+def _worst(got: dict, want: dict, relative: bool) -> tuple[float, str]:
+    """The largest gap of a leaf of ``got`` to ``want`` (each over the
+    leaf's largest |want| with ``relative``), compared on the card a leaf
+    at a time, and its leaf."""
+    worst, leaf = 0.0, None
+    for k, w in want.items():
+        w = w.cuda()
+        gap = max_abs_err(got[k].cuda(), w)
+        if relative:
+            gap /= max(float(w.abs().max()), 1e-30)
+        if gap > worst or leaf is None:
+            worst, leaf = gap, k
+    return worst, leaf
+
+
+def _mesh_ranks(label: str, res, startup: list, cell: dict,
+                power: str) -> None:
+    """Each rank's line, and the resident bytes held to the dry run's
+    argument bytes a GPU. A case of no steps reports its gradient pass's
+    bytes and seconds (the step adds the norm's and the scales' scalars)."""
+    coll = cell["collective_bytes_per_chip"]
+    for r, rank in enumerate(res.ranks):
+        steps = bool(rank["step_seconds"])
+        b = rank["bytes"] if steps else rank["grads_bytes"]
+        secs = rank["step_seconds"] or [rank["grads_seconds"]]
+        cs = (rank["collective_seconds"] if steps
+              else rank["grads_collective_seconds"])
+        handed = b["data"] + b["model"] + b["world"]
+        st = startup[r]
+        print(f"LM 19{label} rank {r}: resident {rank['resident_bytes']} B "
+              f"(the dry run's arguments a GPU {cell['argument_bytes']}); "
+              f"to the backend: data {b['data']} B, model {b['model']} B, "
+              f"world {b['world']} B, {handed} B in all against the cell's "
+              f"{coll:.6g} collective bytes (ratio "
+              f"{handed / coll if coll else float('nan'):.4g}; "
+              f"{cell['collective_breakdown']}); staged {b['staged']} B; "
+              f"in the collectives {cs['backend']:.3f} s in gloo, "
+              f"{cs['staging']:.3f} s staging, {cs['wait']:.3f} s waiting "
+              f"for the card; "
+              f"peak {rank['peak_bytes']} B; "
+              f"{'step' if rank['step_seconds'] else 'gradient pass'} "
+              f"{', '.join(f'{x:.3f}' for x in secs)} s; "
+              f"start-up {st['spawn_to_first_s']:.1f} s (interpreter and "
+              f"imports {st['spawn_to_main_s']:.1f}, rendezvous "
+              f"{st['rendezvous_s']:.1f}, weights drawn {rank['load_s']:.1f}"
+              f"); outputs written in {rank['save_s']:.1f} s; "
+              f"card {power}")
+        check(rank["resident_bytes"] == cell["argument_bytes"],
+              f"LM 19{label}: rank {r} holds {rank['resident_bytes']} bytes, "
+              f"the dry run's cell {cell['argument_bytes']}")
+
+
+def phase_lm_mesh(seed: int, power: str) -> dict:
+    """Phase 19: (a) and (b) on one gloo ×8 spawn, then (c)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.lm_mesh import TrainCase, run_train_mesh_cases
+
+    t_phase = time.perf_counter()
+    full = get_config(LM_TRAIN_ARCH)
+    cfg_a = full.with_groups(LM_MESH_GROUPS)
+    cfg_b = dataclasses.replace(full.with_groups(1), dtype=torch.float32)
+    B, S = LM_MESH_BATCH, LM_MESH_SEQ
+    batch = synthetic_batch(full, 0, S, B, device="cpu")
+    one_a = _one_process(cfg_a, seed, batch, grads=False)
+    one_b = _one_process(cfg_b, seed, batch, grads=True)
+    print(f"LM 19: this process: (a) {cfg_a.name} bf16 one step, loss "
+          f"{one_a['loss']:.9g}, {one_a['seconds']:.3f} s, peak "
+          f"{one_a['peak']} B; (b) {cfg_b.name} float32 gradients, loss "
+          f"{one_b['loss']:.9g}, {one_b['seconds']:.3f} s, peak "
+          f"{one_b['peak']} B; card {power}")
+    opt_cfg = lm_train_opt()
+    t0 = time.perf_counter()
+    run = run_train_mesh_cases(
+        [TrainCase(cfg_a, seed, batch, opt_cfg=opt_cfg, repeats=2,
+                   keep=("params",)),
+         TrainCase(cfg_b, seed, batch, opt_cfg=opt_cfg, steps=0,
+                   keep=("grads",))],
+        LM_MESH_SHAPE, device="cuda", backend="gloo",
+        timeout=LM_MESH_TIMEOUT)
+    gloo_s = time.perf_counter() - t0
+    res_a, res_b = run.results
+    info = dict(kind="train", seq_len=S, global_batch=B)
+    cells = [run_cell(c.name, "train", cfg=c, mesh_shape=LM_MESH_SHAPE,
+                      shape_info=info) for c in (cfg_a, cfg_b)]
+
+    loss_a = res_a.metrics[0]["loss"]
+    pgap, pleaf = _worst(res_a.params, one_a["after"], relative=False)
+    again = [rank["repeats"][0] for rank in res_a.ranks]
+    same = all(a["differ"] == [] and a["metrics"] == res_a.metrics
+               for a in again)
+    print(f"LM 19(a): gloo x8 on one card, mesh {LM_MESH_SHAPE}, "
+          f"{cfg_a.name} ({cfg_a.n_layers} layers, d_model {cfg_a.d_model}, "
+          f"heads {cfg_a.n_heads}/{cfg_a.n_kv_heads}, ff {cfg_a.d_ff}, vocab "
+          f"{cfg_a.vocab}) bf16, remat {cfg_a.remat}, B {B} x S {S}: loss "
+          f"{loss_a:.9g} against this process's {one_a['loss']:.9g} (gap "
+          f"{abs(loss_a - one_a['loss']):.3g}, bar {LM_MESH_LOSS_BAR:g}); "
+          f"worst weight after the step {pleaf} {pgap:.3g} (bar "
+          f"{LM_MESH_PARAM_BAR:g}); a second run from the same state: same "
+          f"bits {same}, its step {max(a['seconds'][0] for a in again):.3f} "
+          f"s on the slowest rank; the spawn {gloo_s:.1f} s (batch shards "
+          f"written in {run.shards_s:.1f} s, outputs joined in "
+          f"{run.gather_s:.1f} s); card {power}")
+    _mesh_ranks("(a)", res_a, run.startup, cells[0], power)
+    check(np.isfinite(loss_a)
+          and abs(loss_a - one_a["loss"]) < LM_MESH_LOSS_BAR,
+          f"LM 19(a): loss {loss_a} against {one_a['loss']}")
+    check(pgap < LM_MESH_PARAM_BAR, f"LM 19(a): {pleaf} off by {pgap}")
+    check(same, f"LM 19(a): a second run differs: "
+          f"{[a['differ'][:4] for a in again]}")
+    del res_a.params
+
+    loss_b = res_b.grads_metrics["loss"]
+    ggap, gleaf = _worst(res_b.grads, one_b["grads"], relative=True)
+    print(f"LM 19(b): gloo x8, {cfg_b.name} ({cfg_b.n_layers} layer) "
+          f"float32: loss {loss_b:.9g} against this process's "
+          f"{one_b['loss']:.9g} (rel {abs(loss_b - one_b['loss']) / abs(one_b['loss']):.3g}, "
+          f"bar {LM_F32_BAR_MESH:g}); worst gradient leaf {gleaf} {ggap:.3g} "
+          f"of its largest |g| (bar {LM_MESH_GRAD_BAR:g}); card {power}")
+    _mesh_ranks("(b)", res_b, run.startup, cells[1], power)
+    check(abs(loss_b - one_b["loss"]) <= LM_F32_BAR_MESH * abs(one_b["loss"]),
+          f"LM 19(b): loss {loss_b} against {one_b['loss']}")
+    check(ggap <= LM_MESH_GRAD_BAR, f"LM 19(b): {gleaf} off by {ggap}")
+    del res_b, one_b, run
+
+    t0 = time.perf_counter()
+    one = run_train_mesh_cases(
+        [TrainCase(cfg_a, seed, batch, opt_cfg=opt_cfg,
+                   keep=("params",))], (1, 1), device="cuda",
+        backend="nccl", timeout=LM_MESH_TIMEOUT)
+    res_c = one.results[0]
+    loss_c = res_c.metrics[0]["loss"]
+    cgap, cleaf = _worst(res_c.params, one_a["after"], relative=False)
+    rank = res_c.ranks[0]
+    cell_c = run_cell(cfg_a.name, "train", cfg=cfg_a, mesh_shape=(1, 1),
+                      shape_info=info)
+    print(f"LM 19(c): NCCL x1 at (1, 1), {cfg_a.name} bf16: loss "
+          f"{loss_c:.9g} against this process's {one_a['loss']:.9g}; worst "
+          f"weight {cleaf} {cgap:.3g}; resident {rank['resident_bytes']} B "
+          f"(the dry run's one-GPU cell {cell_c['argument_bytes']}); peak "
+          f"{rank['peak_bytes']} B; step {rank['step_seconds'][0]:.3f} s; "
+          f"start-up {one.startup[0]['spawn_to_first_s']:.1f} s; the spawn "
+          f"{time.perf_counter() - t0:.1f} s (outputs joined in "
+          f"{one.gather_s:.1f} s); card {power}")
+    check(abs(loss_c - one_a["loss"]) < LM_MESH_LOSS_BAR,
+          f"LM 19(c): loss {loss_c} against {one_a['loss']}")
+    check(cgap < LM_MESH_PARAM_BAR, f"LM 19(c): {cleaf} off by {cgap}")
+    check(rank["resident_bytes"] == cell_c["argument_bytes"],
+          f"LM 19(c): {rank['resident_bytes']} bytes held, the dry run's "
+          f"cell {cell_c['argument_bytes']}")
+    seconds = time.perf_counter() - t_phase
+    print(f"LM phase 19: {seconds:.1f} s; card {power}")
+    return dict(seconds=seconds)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=24)
@@ -3560,6 +3795,8 @@ def main(argv=None) -> int:
     lap("17")
     phase_lm_train(args.seed, built["power"])
     lap("18")
+    phase_lm_mesh(args.seed, built["power"])
+    lap("19")
     for name, k in kernels.items():
         k["launches"] = launches[name]
         k["mesh_launches_per_rank"] = mesh["launches_per_rank"][name]

@@ -199,3 +199,48 @@ def train_state_from_arrays(cfg, opt_tree: dict, device=None) -> dict:
     out["step"] = torch.tensor(int(np.asarray(opt_tree["step"])),
                                dtype=torch.int32, device=device)
     return out
+
+
+def lm_named_tensors(cfg, params, device="cpu") -> dict[str, torch.Tensor]:
+    """``{port name: tensor}`` of an LM's weights given as the JAX package's
+    tree of numpy arrays, or as ``{port name: array or tensor}``; each of
+    its ``param_dtype`` (bf16 carried bit for bit), or refused."""
+    from repro_torch.models.transformer import param_dtype, param_shapes
+
+    named = (lm_named_from_tree(cfg, params) if "groups" in params
+             else dict(params))
+    if set(named) != set(param_shapes(cfg)):
+        raise ValueError(f"{cfg.name}: weights do not name the config's")
+    out = {}
+    for name, a in named.items():
+        t = a if isinstance(a, torch.Tensor) else tensor_from_array(a, "cpu")
+        if t.dtype != param_dtype(cfg, name):
+            raise ValueError(f"{cfg.name}: {name} is {t.dtype}, the config "
+                             f"says {param_dtype(cfg, name)}")
+        out[name] = t.to(device)
+    return out
+
+
+def shard_named(named: dict, specs: dict, mesh, rank: int) -> dict:
+    """Rank ``rank``'s shard of each leaf of ``{name: array or tensor}``
+    under ``specs`` (``launch/lm_mesh.py::param_specs``) on ``mesh``: the
+    slices ``shard_index`` gives, copied (a tensor view would carry its
+    whole storage into ``torch.save``)."""
+    from repro_torch.launch.lm_mesh import shard_index
+
+    out = {}
+    for k, a in named.items():
+        part = a[shard_index(specs[k], a.shape, mesh, rank)]
+        out[k] = part.clone() if isinstance(part, torch.Tensor) else part.copy()
+    return out
+
+
+def gather_named(ranks: list[dict], specs: dict, mesh) -> dict:
+    """Each leaf whole from every rank's ``{name: shard}`` (in rank order):
+    the inverse of ``shard_named``; replicated copies must agree bit for
+    bit (``lm_mesh.gather_shards``). ``lm_tree_from_named`` makes the
+    reference's tree of the result."""
+    from repro_torch.launch.lm_mesh import gather_shards
+
+    return {k: gather_shards([r[k] for r in ranks], specs[k], mesh)
+            for k in ranks[0]}

@@ -233,9 +233,11 @@ def run_mesh_cases(pg, cases, *, backend: str | None = None, device=None,
             shutil.rmtree(workdir, ignore_errors=True)
 
 
-def _spawn_and_wait(workdir: str, devices: list[str], timeout: float) -> None:
-    """Spawn a rank a device and wait for all to exit 0; on the first
-    failure or at the deadline, kill every rank and raise MeshFailed."""
+def _spawn_and_wait(workdir: str, devices: list[str], timeout: float,
+                    module: str = "repro_torch.launch.mesh") -> None:
+    """Spawn a rank a device (``python -m <module> rank <workdir> <r>``)
+    and wait for all to exit 0; on the first failure or at the deadline,
+    kill every rank and raise MeshFailed."""
     env = dict(os.environ)
     env["PYTHONPATH"] = _src_root() + os.pathsep + env.get("PYTHONPATH", "")
     procs: list[subprocess.Popen] = []
@@ -245,7 +247,7 @@ def _spawn_and_wait(workdir: str, devices: list[str], timeout: float) -> None:
             env["CUDA_VISIBLE_DEVICES"] = gpu
             # analysis: allow[liveness-clock] a start-up report, no deadline
             spawned = time.time()
-            cmd = [sys.executable, "-m", "repro_torch.launch.mesh", "rank",
+            cmd = [sys.executable, "-m", module, "rank",
                    workdir, str(r), "--spawned", repr(spawned)]
             with open(_log(workdir, r), "ab") as logf:
                 procs.append(subprocess.Popen(

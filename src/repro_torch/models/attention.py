@@ -39,7 +39,8 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, row_parallel
+from repro_torch.models.sharding import copy_to
 
 #: the masked logit, as the reference's ``jnp.where(mask, logits, -1e30)``
 MASKED = -1e30
@@ -161,15 +162,25 @@ def _ring_write(cache, pos: int, **entries) -> None:
 def gqa_attention(p: dict, x, positions, *, n_heads: int, n_kv_heads: int,
                   head_dim: int, rope_theta: float, window: int | None = None,
                   causal: bool = True, cache: KVCache | None = None,
-                  pos: int | None = None, cross_kv=None):
+                  pos: int | None = None, cross_kv=None, grid=None,
+                  kv_index: torch.Tensor | None = None):
     """Returns out (B,S,d). ``p`` holds ``wq`` (d, H·hd), ``wk``/``wv``
     (d, Hkv·hd) and ``wo`` (H·hd, d). A decode call (``cache`` given,
     S == 1) takes its position also as the Python int ``pos``, the slot it
     writes: a slot read back from the card would wait for it. With
     ``cross_kv=(k, v)``, (B, T, Hkv, hd) media or encoder keys, the queries
     attend to all T of them and ``cache`` is not used; ``causal=False`` is
-    the encoder's bidirectional self-attention."""
+    the encoder's bidirectional self-attention.
+
+    On a live ``grid`` (training forward only) ``p`` holds this rank's
+    'model' shard: ``n_heads`` query heads (``wq``'s columns, ``wo``'s
+    rows) and ``n_kv_heads`` KV heads, which a contiguous split keeps in
+    their groups; ``wo`` is row-parallel. Where the spec splits ``wk``/
+    ``wv`` below a head, the caller gathers them whole and ``kv_index``
+    picks each local query head's KV head (h // rep)."""
     B, S, d = x.shape
+    if grid is not None:
+        x = copy_to(x, grid, "model")
     q = (x @ p["wq"]).reshape(B, S, n_heads, head_dim)
     q = apply_rope(q, positions, rope_theta)
     if cross_kv is not None:
@@ -177,6 +188,8 @@ def gqa_attention(p: dict, x, positions, *, n_heads: int, n_kv_heads: int,
     else:
         k = (x @ p["wk"]).reshape(B, S, n_kv_heads, head_dim)
         v = (x @ p["wv"]).reshape(B, S, n_kv_heads, head_dim)
+        if kv_index is not None:
+            k, v = k[:, :, kv_index], v[:, :, kv_index]
         k = apply_rope(k, positions, rope_theta)
         if cache is None or S > 1:
             out = _attend(q, k, v, _train_mask(positions, window, causal))
@@ -186,7 +199,8 @@ def gqa_attention(p: dict, x, positions, *, n_heads: int, n_kv_heads: int,
             _ring_write(cache, pos, k=k, v=v)
             out = _attend(q, cache.k, cache.v,
                           _cache_mask(positions, cache.pos, window))
-    y = out.reshape(B, S, n_heads * head_dim) @ p["wo"]
+    out = out.reshape(B, S, n_heads * head_dim)
+    y = out @ p["wo"] if grid is None else row_parallel(out, p["wo"], grid)
     return y.to(x.dtype)
 
 

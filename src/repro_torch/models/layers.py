@@ -4,6 +4,11 @@ The torch counterparts of the JAX package's ``models/layers.py``, with the
 same arithmetic: the norm and RoPE in float32, logits in float32, weights in
 the reference's ``(in, out)`` layout applied as ``x @ w``. The reference's
 sharding hints (``act_*``) do nothing on one device and are left out.
+
+With a live ``grid`` (``launch/lm_mesh.py::ProcessGrid``) ``embed``,
+``unembed`` and ``swiglu_ffn`` take this rank's 'model' shard of their
+weights (vocab rows, FFN columns and rows) and run vocab- and
+tensor-parallel; without one they are the one-process functions, unchanged.
 """
 
 from __future__ import annotations
@@ -12,6 +17,8 @@ import functools
 
 import numpy as np
 import torch
+
+from repro_torch.models.sharding import copy_to, reduce_from
 
 #: elements of a weight drawn at a time by ``truncated_normal`` (its
 #: float32 scratch, 256 MiB at most, whatever the weight's size)
@@ -77,17 +84,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
 
-def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+def embed(tokens: torch.Tensor, table: torch.Tensor, grid=None) -> torch.Tensor:
     """The rows of ``table`` (vocab, d) for ``tokens``. Its backward is the
     dense embedding backward, which sorts the tokens and adds each row's
     gradients in that order on the card too (``table[tokens]``'s would be
-    an ``index_put_``), so two training runs give the same bits."""
-    return torch.nn.functional.embedding(tokens, table)
+    an ``index_put_``), so two training runs give the same bits.
+
+    On a grid ``table`` is this rank's vocab rows: a token outside them
+    gives a zero row, and the rows are summed over 'model' (one rank's is
+    not zero). The rank's own tokens alone go through the embedding, so its
+    backward adds them in that order and adds nothing for another rank's
+    token (a clamped index would add zeros into row 0)."""
+    if grid is None or grid.size("model") == 1:
+        return torch.nn.functional.embedding(tokens, table)
+    rows = table.shape[0]
+    local = tokens.long() - grid.index("model") * rows
+    own = ((local >= 0) & (local < rows)).nonzero(as_tuple=True)
+    out = table.new_zeros(*tokens.shape, table.shape[1]).index_put(
+        own, torch.nn.functional.embedding(local[own], table))
+    return reduce_from(out, grid, "model")
 
 
-def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+def unembed(x: torch.Tensor, table: torch.Tensor, grid=None) -> torch.Tensor:
     """Logits in float32. As in the reference, the (vocab, d) table is
-    upcast to float32 on every call: a temporary of 4 bytes a table entry."""
+    upcast to float32 on every call: a temporary of 4 bytes a table entry.
+    On a grid, the logits of this rank's vocab rows."""
+    if grid is not None:
+        x = copy_to(x, grid, "model")
     return x.float() @ table.float().T
 
 
@@ -99,5 +122,20 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.gelu(x, approximate="tanh")
 
 
-def swiglu_ffn(x, wg, wu, wd, act=silu):
-    return (act(x @ wg) * (x @ wu)) @ wd
+def row_parallel(x: torch.Tensor, w: torch.Tensor, grid) -> torch.Tensor:
+    """``x @ w`` where ``x`` holds this rank's columns of the input and
+    ``w`` the same rows (the 'model' split of an output projection): the
+    partial products in float32, summed over 'model', rounded once to
+    ``x``'s dtype."""
+    if grid.size("model") == 1:
+        return x @ w
+    return reduce_from(x.float() @ w.float(), grid, "model").to(x.dtype)
+
+
+def swiglu_ffn(x, wg, wu, wd, act=silu, grid=None):
+    """On a grid ``wg``/``wu`` hold this rank's columns and ``wd`` its rows
+    of the hidden dimension: column-, then row-parallel."""
+    if grid is None:
+        return (act(x @ wg) * (x @ wu)) @ wd
+    x = copy_to(x, grid, "model")
+    return row_parallel(act(x @ wg) * (x @ wu), wd, grid)

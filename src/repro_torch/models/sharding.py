@@ -6,17 +6,21 @@ The reference pins activations at block boundaries with
 
     set_rules(batch=('pod', 'data'), model='model', seq=None, mesh=mesh)
 
-One process holds every tensor whole, so the port pins nothing. The rules
-are kept for what they decide: :func:`act_spec` gives the spec the
-reference's ``act_*`` would pin a shape to (``fit``: an axis that does not
-divide its dimension, or of size 1, is dropped), and the dry run
-(``launch/dryrun.py``) divides its activation, attention and MoE work by
-it. A spec is a plain tuple of None, a mesh axis name, or a tuple of names.
+The port pins nothing: one process holds every tensor whole, and a rank of
+a live grid holds what its products need by construction (the collectives
+at the end of this module). The rules are kept for what they decide:
+:func:`act_spec` gives the spec the reference's ``act_*`` would pin a shape
+to (``fit``: an axis that does not divide its dimension, or of size 1, is
+dropped), and the dry run (``launch/dryrun.py``) divides its activation,
+attention and MoE work by it. A spec is a plain tuple of None, a mesh axis
+name, or a tuple of names.
 """
 
 from __future__ import annotations
 
 from contextlib import contextmanager
+
+import torch
 
 _RULES: dict | None = None
 
@@ -70,3 +74,76 @@ def act_spec(kind: str, shape) -> tuple:
     if kind == "logits":
         kind = f"logits{len(shape)}"
     return logical_spec(shape, *ACT_AXES[kind])
+
+
+# ---------------------------------------------------------------------------
+# collectives that autograd passes through, over a live process grid
+# ---------------------------------------------------------------------------
+#
+# On a live grid (``launch/lm_mesh.py::ProcessGrid``) a rank holds its shards
+# and the products run where the specs put them: FSDP gathers over 'data',
+# Megatron's tensor-parallel pair over 'model'. Each op below is a no-op on an
+# axis of size 1, so a grid of one rank computes what one process does. A grid
+# adds float partials in rank order (gathered, then added 0..n-1, in float32
+# for a 16-bit dtype and rounded once): every rank gets the same bits, and
+# two runs the same bits.
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grid, axis, dim):
+        ctx.grid, ctx.axis, ctx.dim = grid, axis, dim
+        return grid.all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.grid.reduce_scatter(g, ctx.axis, ctx.dim), None, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grid, axis):
+        ctx.grid, ctx.axis = grid, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.grid.all_sum(g, ctx.axis), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grid, axis):
+        return grid.all_sum(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def gather(x, grid, axis: str, dim: int):
+    """``x``'s pieces over ``axis`` joined along ``dim`` in rank order (the
+    FSDP gather over 'data'); its backward sums the gradients over the axis
+    and keeps this rank's piece (a reduce-scatter)."""
+    return x if grid.size(axis) == 1 else _Gather.apply(x, grid, axis, dim)
+
+
+def copy_to(x, grid, axis: str):
+    """Identity forward, gradients summed over ``axis`` backward: where a
+    tensor replicated over the axis enters products that split it
+    (Megatron's f)."""
+    return x if grid.size(axis) == 1 else _CopyTo.apply(x, grid, axis)
+
+
+def reduce_from(x, grid, axis: str):
+    """Partials summed over ``axis`` forward, the gradient passed through
+    backward: every rank computes the same sum and takes its own part's
+    gradient from it (Megatron's g)."""
+    return x if grid.size(axis) == 1 else _ReduceFrom.apply(x, grid, axis)
+
+
+def max_over(x, grid, axis: str):
+    """The elementwise max over ``axis``, detached (exact in any order; the
+    softmax's shift, which no gradient passes through)."""
+    return x.detach() if grid.size(axis) == 1 else grid.all_max(x.detach(),
+                                                                 axis)

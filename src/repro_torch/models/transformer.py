@@ -28,6 +28,15 @@ step turns their gradients on; ``forward(..., with_aux=True)`` also returns
 the MoE load-balance loss, and with ``cfg.remat`` each pattern group and
 each encoder layer is recomputed in the backward (``torch.utils.checkpoint``)
 where the reference wraps its scan body in ``jax.checkpoint``.
+
+On a live ``grid`` (``launch/lm_mesh.py::ProcessGrid``, one process a rank
+of a (data, model) mesh) the model is built from one rank's shards, split as
+the reference's ``param_specs`` (mode ``train``) split them, and runs the
+training forward of the dense GQA layers (``attn`` with a ``dense`` FFN):
+each layer gathers its leaves' FSDP ('data') axes as it starts and drops
+them as it ends (autograd keeps what its backward needs unless ``cfg.remat``
+recomputes the group, gathers included); attention heads, FFN columns and
+the vocab run over 'model'. Other kinds, caches and media are refused there.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from repro_torch.models.layers import (
     embed, gelu, rms_norm, silu, swiglu_ffn, truncated_normal, unembed,
 )
 from repro_torch.models.moe import moe_ffn
+from repro_torch.models.sharding import copy_to, gather
 from repro_torch.models.ssm import SSMCache, mamba_block
 
 #: the leaves the reference keeps in float32 whatever ``cfg.dtype`` is
@@ -247,7 +257,8 @@ class DecoderLayer(nn.Module):
     last call's ``(aux, dropped)`` in ``moe_stats``, detached (device
     scalars): they hold no autograd graph alive after a training step."""
 
-    def __init__(self, cfg: ModelConfig, spec: LayerSpec, p: dict):
+    def __init__(self, cfg: ModelConfig, spec: LayerSpec, p: dict,
+                 grid=None, specs: dict | None = None):
         super().__init__()
         self.cfg, self.spec = cfg, spec
         for name in ("ln1", "ln2", "ln_x", "mix_a", "mix_s"):
@@ -257,9 +268,61 @@ class DecoderLayer(nn.Module):
             setattr(self, name, _group(p, name))
         self.act = silu if cfg.act == "silu" else gelu
         self.moe_stats = None
+        self.grid, self.specs = grid, specs
+        if grid is not None:
+            self._split_heads()
+
+    def _split_heads(self) -> None:
+        """This rank's heads on the grid: H/m query heads, contiguous, and
+        the KV heads they read. Where the spec cuts ``wk``/``wv`` at whole
+        heads (Hkv divisible by m) the rank keeps its Hkv/m; where it cuts
+        them below a head, or not at all, the layer computes every KV head
+        (the leaves gathered over 'model', as GSPMD reshards them) and
+        ``kv_index`` picks the one each local query head reads."""
+        cfg, grid = self.cfg, self.grid
+        m, H, Hkv = grid.size("model"), cfg.n_heads, cfg.n_kv_heads
+        lo = grid.index("model") * (H // m)
+        self.heads, self.kv_heads, self.kv_index = H // m, Hkv // m, None
+        if Hkv % m:
+            self.kv_heads = Hkv
+            self.kv_index = torch.arange(lo, lo + H // m) // (H // Hkv)
+
+    def _gathered(self) -> dict:
+        """The layer's weights as its products use them: each leaf's FSDP
+        axis gathered over 'data'; ``wk``/``wv`` gathered over 'model' too
+        where ``_split_heads`` computes every KV head (their gradients then
+        summed over 'model': each rank's query heads give a part)."""
+        grid, out = self.grid, {}
+        for name, w in self.named_parameters():
+            spec = self.specs[name]
+            if "data" in spec:
+                w = gather(w, grid, "data", spec.index("data"))
+            if self.kv_index is not None and name in ("attn.wk", "attn.wv"):
+                w = (gather(w, grid, "model", spec.index("model"))
+                     if "model" in spec else copy_to(w, grid, "model"))
+            out[name] = w
+        return out
+
+    def _grid_forward(self, x, positions):
+        cfg, grid = self.cfg, self.grid
+        w = self._gathered()
+        attn = {k: w[f"attn.{k}"] for k in ("wq", "wk", "wv", "wo")}
+        h = rms_norm(x, w["ln1"], cfg.norm_eps)
+        x = x + gqa_attention(
+            attn, h, positions, n_heads=self.heads, n_kv_heads=self.kv_heads,
+            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+            window=self.spec.window, grid=grid,
+            kv_index=(None if self.kv_index is None
+                      else self.kv_index.to(x.device)))
+        h2 = rms_norm(x, w["ln2"], cfg.norm_eps)
+        x = x + swiglu_ffn(h2, w["ffn.w_gate"], w["ffn.w_up"],
+                           w["ffn.w_down"], self.act, grid)
+        return x, None
 
     def forward(self, x, positions, cache: LayerCache | None = None,
                 pos: int | None = None, media_states=None, enc_states=None):
+        if self.grid is not None:
+            return self._grid_forward(x, positions)
         cfg, spec = self.cfg, self.spec
         h = rms_norm(x, self.ln1, cfg.norm_eps)
         kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
@@ -339,13 +402,47 @@ def _checkpoint(fn, *args):
     return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
+#: the leaves a grid must split over 'model' (vocab rows, query heads, FFN
+#: columns and rows): the rank computes only its part of their products
+MODEL_SPLIT = ("embed", "unembed", "wq", "wo", "w_gate", "w_up", "w_down")
+
+
+def check_grid(cfg: ModelConfig, specs: dict, grid) -> None:
+    """Refuse what a grid does not run: layers other than ``attn`` with a
+    ``dense`` FFN, an encoder, and a 'model' axis that does not split the
+    ``MODEL_SPLIT`` leaves (query heads included) into whole parts."""
+    bad = [s for s in layer_specs(cfg) if (s.kind, s.ffn) != ("attn", "dense")]
+    if bad or cfg.n_enc_layers:
+        raise ValueError(
+            f"{cfg.name}: a grid runs dense GQA layers (attn + dense FFN) "
+            f"only, not {sorted({(s.kind, s.ffn) for s in bad})}"
+            + (" or an encoder" if cfg.n_enc_layers else ""))
+    m = grid.size("model")
+    split = [k for k, sp in specs.items()
+             if k.rsplit(".", 1)[-1] in MODEL_SPLIT and "model" not in sp]
+    if m > 1 and (cfg.n_heads % m or split):
+        raise ValueError(
+            f"{cfg.name}: 'model' of {m} must split the {cfg.n_heads} query "
+            f"heads and {sorted(split) or 'every'} of the vocab and FFN leaves"
+            " into whole parts")
+
+
 class Transformer(nn.Module):
     """The stack over ``params``, a ``{name: tensor}`` dict in
-    ``param_shapes``' naming (taken as they are, not copied)."""
+    ``param_shapes``' naming (taken as they are, not copied). With a live
+    ``grid``, ``params`` holds this rank's shards, each of the shape its
+    spec (``grid.param_specs(cfg)``) gives it."""
 
-    def __init__(self, cfg: ModelConfig, params: dict[str, torch.Tensor]):
+    def __init__(self, cfg: ModelConfig, params: dict[str, torch.Tensor],
+                 grid=None):
         super().__init__()
+        self.grid = grid
+        specs = None if grid is None else grid.param_specs(cfg)
         shapes = param_shapes(cfg)
+        if grid is not None:
+            check_grid(cfg, specs, grid)
+            shapes = {k: grid.shard_shape(specs[k], s)
+                      for k, s in shapes.items()}
         if set(params) != set(shapes):
             raise ValueError(
                 f"{cfg.name}: params missing {sorted(set(shapes) - set(params))}"
@@ -360,12 +457,14 @@ class Transformer(nn.Module):
         if not cfg.tie_embeddings:
             self.unembed = _param(params["unembed"])
 
-        def sub(pre: str) -> dict:
-            return {k[len(pre):]: v for k, v in params.items()
+        def sub(pre: str, tree=params) -> dict:
+            return {k[len(pre):]: v for k, v in tree.items()
                     if k.startswith(pre)}
 
+        self.specs = specs
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, spec, sub(f"layers.{i}."))
+            DecoderLayer(cfg, spec, sub(f"layers.{i}."), grid,
+                         None if grid is None else sub(f"layers.{i}.", specs))
             for i, spec in enumerate(layer_specs(cfg)))
         self.encoder = nn.ModuleList(
             EncoderLayer(cfg, sub(f"encoder.{j}."))
@@ -459,21 +558,27 @@ class Transformer(nn.Module):
         ``(logits, aux)``: the MoE load-balance losses summed in stack
         order (float32 0 without MoE layers)."""
         B, S = tokens.shape
-        x = embed(tokens, self.embed).to(self.cfg.dtype)
+        x = embed(tokens, self._table("embed"), self.grid).to(self.cfg.dtype)
         x, aux = self.apply_stack(x, _arange(S, B, tokens.device),
                                   **self.media_states(media))
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        logits = unembed(x, self.table)
+        name = "embed" if self.cfg.tie_embeddings else "unembed"
+        logits = unembed(x, self._table(name), self.grid)
         return (logits, aux) if with_aux else logits
 
+    def _table(self, name: str) -> torch.Tensor:
+        """The embedding or unembedding table; on a grid this rank's vocab
+        rows, gathered over 'data'."""
+        t = getattr(self, name)
+        if self.grid is None or "data" not in self.specs[name]:
+            return t
+        return gather(t, self.grid, "data", self.specs[name].index("data"))
 
-def init_params(cfg: ModelConfig, seed: int, device=None) -> Transformer:
-    """Random weights from ``seed``, drawn on the device, with the
-    reference's standard deviations (0.02; the output projections 0.02 /
-    sqrt(2·n_layers)) and constants (norms 0, ``mix_*`` 0.5, ``D`` 1, the
-    SSM's ``A_log``, ``dt_bias`` and ``conv_b`` 0). The draws are not the
-    reference's: ``lm_params_from_arrays`` carries its weights across."""
-    device = resolve_device(device)
+
+def init_weights(cfg: ModelConfig, seed: int, device, keep=None) -> dict:
+    """``init_params``' weights as ``{name: tensor}``; with ``keep(name,
+    leaf)`` each leaf, drawn whole (the draws follow one generator), is
+    replaced by what ``keep`` returns (a rank's shard)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     s, s_out = 0.02, 0.02 / (2 * cfg.n_layers) ** 0.5
@@ -482,9 +587,19 @@ def init_params(cfg: ModelConfig, seed: int, device=None) -> Transformer:
         leaf = name.rsplit(".", 1)[-1]
         dtype = param_dtype(cfg, name)
         if leaf in CONST_LEAVES:
-            params[name] = torch.full(shape, CONST_LEAVES[leaf], dtype=dtype,
-                                      device=device)
+            t = torch.full(shape, CONST_LEAVES[leaf], dtype=dtype,
+                           device=device)
         else:
             std = s_out if leaf in OUT_LEAVES else s
-            params[name] = truncated_normal(shape, std, dtype, device, gen)
-    return Transformer(cfg, params)
+            t = truncated_normal(shape, std, dtype, device, gen)
+        params[name] = t if keep is None else keep(name, t)
+    return params
+
+
+def init_params(cfg: ModelConfig, seed: int, device=None) -> Transformer:
+    """Random weights from ``seed``, drawn on the device, with the
+    reference's standard deviations (0.02; the output projections 0.02 /
+    sqrt(2·n_layers)) and constants (norms 0, ``mix_*`` 0.5, ``D`` 1, the
+    SSM's ``A_log``, ``dt_bias`` and ``conv_b`` 0). The draws are not the
+    reference's: ``lm_params_from_arrays`` carries its weights across."""
+    return Transformer(cfg, init_weights(cfg, seed, resolve_device(device)))

@@ -2,9 +2,10 @@
 ``training/compress.py``.
 
 Each leaf is quantized to int8 with a float32 scale a leaf; the quantization
-error is kept in an error buffer and added back the next step. On one card
-there is no all-reduce to compress: as the reference on one device, the
-step quantizes and dequantizes.
+error is kept in an error buffer and added back the next step. As the
+reference's step, the port quantizes the reduced gradients and dequantizes
+them (on a grid, each rank its shards, with the leaf's one scale): the
+codes carry no wire bytes here.
 """
 
 from __future__ import annotations
@@ -36,16 +37,22 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
     return (q.to(torch.float32) * scale).to(dtype)
 
 
-def compress_tree(grads: dict, errs: dict, leaves: list[list[str]]):
+def compress_tree(grads: dict, errs: dict, leaves: list[list[str]],
+                  grid=None):
     """Quantize every gradient with its error: (codes, scales, new errors),
     dicts of the same names. ``leaves`` lists the names that share one
     scale, a leaf of the reference's tree each (a pattern position's
-    layers are one stacked leaf there, ``models.transformer.tree_slots``)."""
+    layers are one stacked leaf there, ``models.transformer.tree_slots``).
+    On a grid each name is this rank's shard, and the scale is the max
+    over every rank's shards of the leaf."""
     qs, scales, new = {}, {}, {}
     for names in leaves:
         g32 = {k: grads[k].to(torch.float32) + errs[k] for k in names}
-        top = torch.stack([torch.max(torch.abs(v)) for v in g32.values()])
-        scale = torch.max(top) / 127.0 + 1e-12
+        top = torch.max(torch.stack([torch.max(torch.abs(v))
+                                     for v in g32.values()]))
+        if grid is not None:
+            top = grid.all_max(top, "world")
+        scale = top / 127.0 + 1e-12
         for k, v in g32.items():
             qs[k], new[k] = _codes(v, scale)
             scales[k] = scale

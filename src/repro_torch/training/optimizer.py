@@ -61,15 +61,26 @@ def _chunks(t: torch.Tensor):
         yield flat[lo:lo + CHUNK]
 
 
-def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
+def global_norm(tree: dict[str, torch.Tensor], owned=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf in float32, the leaves added
     in the dict's order from 0 (the reference adds its sorted leaves: the
-    same terms, in another order)."""
+    same terms, in another order).
+
+    On a grid, ``owned`` is ``(grid, names)``: the shards this rank counts,
+    each element of a leaf once (a leaf replicated over an axis counts on
+    that axis's coordinate 0, ``ProcessGrid.owns``); the ranks' sums are
+    added in rank order."""
     total = None
-    for x in tree.values():
-        for c in _chunks(x):
+    names = tree if owned is None else owned[1]
+    for k in names:
+        for c in _chunks(tree[k]):
             sq = torch.sum(torch.square(c.to(torch.float32)))
             total = sq if total is None else total + sq
+    if owned is not None:
+        if total is None:
+            total = torch.zeros((), dtype=torch.float32,
+                                device=next(iter(tree.values())).device)
+        total = owned[0].all_sum(total, "world")
     return torch.sqrt(total)
 
 
@@ -86,13 +97,15 @@ def _update(cfg: AdamWConfig, p, g, mu, nu, scale, lr, bc1, bc2) -> None:
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: dict[str, torch.Tensor],
-                 grads: dict[str, torch.Tensor], state: dict):
+                 grads: dict[str, torch.Tensor], state: dict, owned=None):
     """One AdamW step over ``params`` (written in place) from ``grads`` (the
     same names; any dtype, widened to float32). Returns ``(params, state',
     {"grad_norm", "lr"})``: the moments are updated in place, ``step``
-    advanced. Weight decay applies to every leaf, norms included."""
+    advanced. Weight decay applies to every leaf, norms included. On a
+    grid ``params`` are this rank's shards and ``owned`` as
+    ``global_norm``'s: the norm spans every shard."""
     step = state["step"] + 1
-    gn = global_norm(grads)
+    gn = global_norm(grads, owned)
     scale = torch.clamp(gn.new_tensor(cfg.clip_norm) / (gn + 1e-9), max=1.0)
     lr = schedule(cfg, step)
     sf = step.to(torch.float32)

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import max_over, reduce_from
 from repro_torch.models.transformer import tree_slots
 from repro_torch.training.compress import (
     compress_tree, decompress_tree, init_error_buffer,
@@ -35,11 +36,37 @@ def ce_loss(model, batch: dict):
     "aux"})``."""
     logits, aux = model(batch["tokens"], batch.get("media"), with_aux=True)
     labels = batch["labels"].long()
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
+    grid = model.grid
+    if grid is None or grid.size("model") == 1:
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
+    else:
+        nll = _vocab_parallel_nll(logits, labels.clamp(min=0), grid)
     mask = (labels >= 0).to(torch.float32)
-    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    if grid is None:
+        loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    else:
+        total = reduce_from(torch.sum(nll * mask), grid, "data")
+        loss = total / torch.clamp(grid.all_sum(torch.sum(mask), "data"),
+                                   min=1.0)
     return loss + 0.01 * aux, dict(loss=loss, aux=aux)
+
+
+def _vocab_parallel_nll(logits, labels, grid):
+    """``-log_softmax(logits)[label]`` where ``logits`` holds this rank's
+    vocab columns: the max and the sum of exponentials over 'model', each
+    label's logit from the rank that owns it."""
+    V = logits.shape[-1]
+    m = max_over(torch.amax(logits.detach(), dim=-1, keepdim=True), grid,
+                 "model")
+    lse = m + torch.log(reduce_from(
+        torch.sum(torch.exp(logits - m), dim=-1, keepdim=True), grid,
+        "model"))
+    local = labels - grid.index("model") * V
+    own = (local >= 0) & (local < V)
+    picked = torch.gather(logits, -1, local.clamp(0, V - 1)[..., None])[..., 0]
+    picked = reduce_from(torch.where(own, picked, 0.0), grid, "model")
+    return lse[..., 0] - picked
 
 
 def _grads(model, batch: dict) -> tuple[dict, dict]:
@@ -57,6 +84,11 @@ def _grads(model, batch: dict) -> tuple[dict, dict]:
     for k, p in params.items():
         grads[k] = torch.zeros_like(p) if p.grad is None else p.grad
         p.grad = None
+    grid = model.grid
+    if grid is not None:  # a leaf replicated over 'data' saw its rows only
+        for k, g in grads.items():
+            if "data" not in model.specs[k]:
+                grads[k] = grid.all_sum(g, "data")
     return grads, {k: v.detach() for k, v in metrics.items()}
 
 
@@ -66,15 +98,22 @@ def compute_grads(model, batch: dict, microbatches: int = 1):
     float32 in slice order, and the last slice's metrics."""
     if microbatches == 1:
         return _grads(model, batch)
+    grid = model.grid
+    n, at = 1, 0  # the data ranks a global slice is split over; this one's
+    if grid is not None:
+        n, at = grid.size("data"), grid.index("data")
+        batch = {k: grid.all_gather(v, "data", 0) for k, v in batch.items()}
     B = batch["tokens"].shape[0]
-    if B % microbatches:
+    if B % (microbatches * n):
         raise ValueError(f"batch of {B} rows does not split into "
-                         f"{microbatches} microbatches")
+                         f"{microbatches} microbatches"
+                         + (f" of {n} data ranks each" if n > 1 else ""))
     mb = B // microbatches
     acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
            for k, p in model.named_parameters()}
     for m in range(microbatches):
-        micro = {k: v[m * mb:(m + 1) * mb] for k, v in batch.items()}
+        lo = m * mb + at * (mb // n)
+        micro = {k: v[lo:lo + mb // n] for k, v in batch.items()}
         grads, metrics = _grads(model, micro)
         for k, g in grads.items():
             acc[k].add_(g.to(torch.float32))
@@ -98,16 +137,26 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         if cfg.grad_compress:
             # int8 error-feedback quantization, where a data-parallel
             # reduction would carry the codes
-            qs, scales, err = compress_tree(grads, err, leaves)
+            qs, scales, err = compress_tree(grads, err, leaves, model.grid)
             grads = decompress_tree(qs, scales)
         params = dict(model.named_parameters())
-        _, opt, stats = adamw_update(opt_cfg, params, grads, opt)
+        _, opt, stats = adamw_update(opt_cfg, params, grads, opt,
+                                     _owned(model))
         if err is not None:
             opt["err"] = err
         metrics.update(stats)
         return model, opt, metrics
 
     return train_step
+
+
+def _owned(model):
+    """On a grid, the grid and the leaves this rank counts in the global
+    norm (``optimizer.global_norm``); None for one process."""
+    grid = model.grid
+    if grid is None:
+        return None
+    return grid, [k for k, spec in model.specs.items() if grid.owns(spec)]
 
 
 def init_train_state(cfg: ModelConfig, model) -> dict:

@@ -1142,3 +1142,101 @@ def test_train_twice_identical_on_card(cuda, name):
     assert torch.isfinite(a["loss"]) and torch.equal(a["loss"], b["loss"])
     assert all(torch.equal(p, q) for p, q in zip(m0.parameters(),
                                                  m1.parameters()))
+
+
+# ---------------------------------------------------------------------------
+# the LM train step on a (data, model) process mesh (launch/lm_mesh.py)
+# ---------------------------------------------------------------------------
+
+def _lm_mesh_case(dtype):
+    """Reduced minitron-4b, weights from numpy seed 0, its batch."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.models.transformer import param_shapes
+
+    cfg = dataclasses.replace(get_config("minitron-4b").reduced(),
+                              dtype=dtype)
+    rng = np.random.default_rng(0)
+    params = {k: torch.from_numpy((rng.standard_normal(s) * 0.02).astype(
+        np.float32)).to(dtype) for k, s in param_shapes(cfg).items()}
+    return cfg, params, synthetic_batch(cfg, 0, 32, 8, device="cpu")
+
+
+def _lm_mesh_close(got, want):
+    """float32 bars (tests/test_torch_train.py's): the loss within rtol
+    1e-6, each gradient leaf within 1e-5 of its largest |g|, each weight
+    within 2 · lr of the other run's."""
+    assert got.grads_metrics["loss"] == pytest.approx(
+        want.grads_metrics["loss"], rel=1e-6)
+    for k, g in want.grads.items():
+        top = float(g.abs().max())
+        assert float((got.grads[k] - g).abs().max()) <= 1e-5 * top, k
+    lr = want.metrics[0]["lr"]
+    for k, w in want.params.items():
+        assert float((got.params[k] - w).abs().max()) <= 2 * lr, k
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 1)])
+def test_lm_mesh_gloo_on_card_matches_the_cpu_grid(cuda, shape):
+    """The autograd collectives (the FSDP gather and its reduce-scatter
+    over 'data'; the tensor-parallel pair, the vocab-parallel embedding
+    and softmax over 'model') under gloo ×2 on one card, through host
+    buffers, against the same grid on the CPU, float32."""
+    from repro_torch.launch.lm_mesh import run_train_mesh
+    from repro_torch.launch.mesh import visible_gpus
+
+    cfg, params, batch = _lm_mesh_case(torch.float32)
+    kw = dict(keep=("params", "grads"), timeout=300)
+    cpu = run_train_mesh(cfg, params, None, batch, shape, device="cpu", **kw)
+    card = run_train_mesh(cfg, params, None, batch, shape, device="cuda",
+                          backend="gloo", gpus=visible_gpus()[:1], **kw)
+    _lm_mesh_close(card, cpu)
+    assert all(r["bytes"]["staged"] > 0 for r in card.ranks)
+    assert all(r["bytes"]["staged"] == 0 for r in cpu.ranks)
+
+
+def test_lm_mesh_nccl_one_rank_equals_one_process(cuda):
+    """run_train_mesh under NCCL at (1, 1), bf16: the one-process step on
+    the card, bit for bit (a one-rank grid runs its arithmetic)."""
+    from repro_torch.launch.lm_mesh import run_train_mesh
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.training.train import init_train_state, make_train_step
+
+    cfg, params, batch = _lm_mesh_case(torch.bfloat16)
+    model = Transformer(cfg, {k: v.cuda() for k, v in params.items()})
+    model, _, m = make_train_step(cfg, _adamw())(
+        model, init_train_state(cfg, model),
+        {k: v.cuda() for k, v in batch.items()})
+    res = run_train_mesh(cfg, params, None, batch, (1, 1), device="cuda",
+                         backend="nccl", opt_cfg=_adamw(), keep=("params",),
+                         timeout=300)
+    assert res.metrics[0]["loss"] == float(m["loss"])
+    for k, p in model.named_parameters():
+        assert torch.equal(res.params[k], p.cpu()), k
+
+
+def test_lm_mesh_nccl_two_ranks(cuda):
+    """NCCL with one rank a GPU at (1, 2) against the CPU grid's float32
+    step (it needs two GPUs)."""
+    from repro_torch.launch.lm_mesh import run_train_mesh
+    from repro_torch.launch.mesh import visible_gpus
+
+    gpus = visible_gpus()
+    if len(gpus) < 2:
+        pytest.skip(f"NCCL runs one rank a GPU, and this machine shows "
+                    f"{len(gpus)} GPU: (1, 2) needs two")
+    cfg, params, batch = _lm_mesh_case(torch.float32)
+    kw = dict(keep=("params", "grads"), timeout=300)
+    cpu = run_train_mesh(cfg, params, None, batch, (1, 2), device="cpu", **kw)
+    card = run_train_mesh(cfg, params, None, batch, (1, 2), device="cuda",
+                          backend="nccl", gpus=gpus[:2], **kw)
+    _lm_mesh_close(card, cpu)
+    assert all(r["bytes"]["staged"] == 0 for r in card.ranks)
+
+
+def _adamw():
+    from repro_torch.training.optimizer import AdamWConfig
+
+    return AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=30)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """chip_smoke.py's LM phases alone, on one GPU.
 
-    python3 tools/lm_phase.py [--seed 0] [--phase 16 | 17 | 18 | 16,17,18]
+    python3 tools/lm_phase.py [--seed 0] [--phase 16 | 17 | 18 | 19 | 16,17]
 
 Narrows its own process to the first GPU the machine gives it, as the smoke
 does, prints the card's name and power limit, then runs phase 16
@@ -11,8 +11,9 @@ prompts) and/or phase 17 (the same for deepseek-v2-lite-16b, mamba2-2.7b,
 hymba-1.5b, whisper-large-v3 and llama-3.2-vision-90b) and/or phase 18
 (training: (a) one full-width pattern group of minitron-4b, deepseek-v2-
 lite-16b and mamba2-2.7b, gradients on the card against the CPU; (b)
-minitron-4b at full width and depth taking 5 AdamW steps, twice). Needs no
-kernel build.
+minitron-4b at full width and depth taking 5 AdamW steps, twice) and/or
+phase 19 (the train step on a (2, 4) mesh of gloo ranks sharing the card,
+against this process's, and NCCL x1 at (1, 1)). Needs no kernel build.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phase", default="16",
-                    help="16, 17, 18 or a list such as 16,17 (default 16)")
+                    help="16, 17, 18, 19 or a list such as 16,17 "
+                    "(default 16)")
     args = ap.parse_args(argv)
     sys.stdout.reconfigure(line_buffering=True)
     import chip_smoke as cs
@@ -60,8 +62,10 @@ def main(argv=None) -> int:
             cs.phase_lm_kinds(args.seed, power)
         elif phase == "18":
             cs.phase_lm_train(args.seed, power)
+        elif phase == "19":
+            cs.phase_lm_mesh(args.seed, power)
         else:
-            ap.error(f"--phase: {phase!r} is not 16, 17 or 18")
+            ap.error(f"--phase: {phase!r} is not 16, 17, 18 or 19")
         print(f"phase {phase} {time.perf_counter() - t0:.1f} s; card {power}")
     return 0
 
