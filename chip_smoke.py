@@ -135,8 +135,9 @@ Phases, each of which ends the run non-zero on a failure:
     pattern group of gemma3-12b (5 local layers, 1 global) at full width
     with the real vocab in float32, a prefill of 16 tokens and 4 decode
     steps (B = 2) on the card against the same weights on the CPU, within
-    1e-4 of the largest |logit|; (b) gemma3-12b at full width and depth
-    (48 layers, bf16 weights from ``--seed``) serving 4 requests of
+    1e-4 of the largest |logit|; (b) gemma3-12b at full width and a
+    quarter of its depth (12 of its 48 layers, ``LM_KIND_GROUPS``, bf16
+    weights from ``--seed``) serving 4 requests of
     1,100-token prompts (past the 1,024 window, not a multiple of it) and
     32 tokens each: two greedy runs with identical tokens, each decode
     step's logits against ``forward`` over the same tokens (the bf16 gap
@@ -153,15 +154,15 @@ Phases, each of which ends the run non-zero on a failure:
     group plus the prologue (Whisper: 1 decoder and 1 encoder layer over
     its 1,500 frames), in float32: a prefill of 16 tokens and 4 decode
     steps (B = 2) on the card against the CPU within 1e-4 of the largest
-    |logit|; (b) each in bf16 at full width and half depth
-    (``LM_KIND_GROUPS``: 14 of deepseek's 27 layers, 32 of mamba2's 64, 16
-    of hymba's 32, 16 + 16 of Whisper's 32 + 32; the VLM at 2 of its 20
+    |logit|; (b) each in bf16 at full width and an eighth of its depth
+    (``LM_KIND_GROUPS``: 4 of deepseek's 27 layers, 8 of mamba2's 64, 8
+    of hymba's 32, 4 + 4 of Whisper's 32 + 32; the VLM at 1 of its 20
     pattern groups) serving 4 requests of 1,100-token prompts (Whisper:
     64 tokens, its 448-position self-cache and 1,500 frames; the VLM 1,600
     patches), 32 tokens each: two greedy runs with identical tokens, the
     tokens changed by other media, the bf16 gap of decode to ``forward``
-    printed, a float32 run at the same width (full depth under 40 GB of
-    weights, else the most pattern groups under it) with decode within
+    printed, a float32 run at the same width (the same depth under 40 GB
+    of weights, else the most pattern groups under it) with decode within
     1e-4 of the largest |logit| of ``forward`` (MoE: prefill against
     ``forward`` over the prompt, whose expert capacity is the same),
     prefill and decode times beside their bounds, peak device memory;
@@ -171,8 +172,9 @@ Phases, each of which ends the run non-zero on a failure:
     pattern group plus the prologue, in float32 with remat (B = 2, S = 16):
     the loss, grad_norm and every gradient leaf on the card within 1e-4 of
     the same weights' on the CPU (of the largest |g| of the leaf); (b)
-    minitron-4b at full width and depth (32 layers, bf16 weights from
-    ``--seed``, remat on) taking 5 AdamW steps on one batch of 2,048
+    minitron-4b at full width, 4 of its 32 layers (``LM_TRAIN_GROUPS``,
+    bf16 weights from ``--seed``, remat on) taking 5 AdamW steps on one
+    batch of 2,048
     tokens: the loss finite and falling, the parameter count the config's
     and the final norm's, a second run from the same seed with the same
     loss and weight bits, ms a step (the median of steps 2-5 between CUDA
@@ -196,7 +198,23 @@ Phases, each of which ends the run non-zero on a failure:
     which must equal the dry run's argument bytes a GPU at (2, 4)
     (``run_cell``), its bytes handed to the backend a mesh axis beside the
     cell's collective bytes (a ratio, not a gate), its peak allocation, step
-    seconds and start-up.
+    seconds and start-up; (d) on (a)'s spawn, every other layer kind at
+    full width and one pattern group (``with_groups(1)``), bf16, one AdamW
+    step each against the same step in this process under (a)'s bars:
+    deepseek-v2-lite-16b (its dense MLA prologue and one MLA/MoE layer, 64
+    experts top 6 over 'model' with the global capacity, 2 shared) and
+    mamba2-2.7b on 2 × 1,024 tokens, whisper-large-v3 (1 encoder and 1
+    decoder layer) on 2 × 448 tokens and 1,500 frames; each MoE layer's
+    dropped copies within ``LM_MESH_DROP_SLACK`` of this process's, every
+    rank's resident bytes the dry run's; and deepseek's group in float32,
+    its gradients within 1e-5 of a leaf's largest |g| of the same pass on
+    this process's CPU (this process's pass on the card parts from the
+    CPU's by more than the mesh does, ``tools/lm_mesh_f32.py``) and its
+    dropped copies equal. For each MoE layer (``_moe_routing``) the mesh's
+    drops equal the global capacity's over its own expert loads, a
+    capacity of each data rank's tokens would drop another count on this
+    process's routing, and the tokens whose routing parts, with their
+    router margins, are printed.
 
 It prints the launch counts of the main path's runs, and the per-kernel JSON
 line and the device line last. It needs a CUDA device and the CUDA toolkit.
@@ -2861,11 +2879,13 @@ LM_BATCH, LM_PROMPT, LM_GEN = 4, 1100, 32  # the prompt passes the window
 LM_KIND_ARCHS = ("deepseek-v2-lite-16b", "mamba2-2.7b", "hymba-1.5b",
                  "whisper-large-v3", "llama-3.2-vision-90b")
 LM_VLM = "llama-3.2-vision-90b"
-LM_VLM_GROUPS = 2  # 17(b): 10 of its 100 layers; 87.7 B do not fit a card
-#: 17(b)'s depth a kind, in pattern groups: the VLM's (its weights), and
-#: the others at half depth, which phase 19 needed of the smoke's time
-LM_KIND_GROUPS = {"deepseek-v2-lite-16b": 13, "mamba2-2.7b": 32,
-                  "hymba-1.5b": 2, "whisper-large-v3": 16,
+LM_VLM_GROUPS = 1  # 17(b): 5 of its 100 layers; 87.7 B do not fit a card
+#: 16(b)'s and 17(b)'s depth an arch, in pattern groups, cut for phase
+#: 19's time: gemma3 at a quarter (12 of 48 layers), the kinds at an
+#: eighth (4 of deepseek's 27 layers, 8 of mamba2's 64, 4 + 4 of
+#: Whisper's 32 + 32, 5 of the VLM's 100), hymba at one group (8 of 32)
+LM_KIND_GROUPS = {LM_ARCH: 2, "deepseek-v2-lite-16b": 3, "mamba2-2.7b": 8,
+                  "hymba-1.5b": 1, "whisper-large-v3": 4,
                   LM_VLM: LM_VLM_GROUPS}
 LM_WHISPER_PROMPT = 64
 LM_WHISPER_MAX_LEN = 448  # the decoder's context: its self-cache length
@@ -3032,8 +3052,8 @@ def phase_lm_group(label: str, archs, seed: int, power: str) -> None:
 
 
 def _f32_cut(cfg, limit: float | None):
-    """The serving check's float32 config: full depth when ``limit`` is
-    None or its weights are under ``limit`` bytes, else the most whole
+    """The serving check's float32 config: ``cfg``'s depth when ``limit``
+    is None or its weights are under ``limit`` bytes, else the most whole
     pattern groups under it."""
     import dataclasses
 
@@ -3041,13 +3061,13 @@ def _f32_cut(cfg, limit: float | None):
 
     f32 = dataclasses.replace(cfg, dtype=torch.float32)
     if limit is None or weight_bytes_f32(f32) < limit:
-        return f32, "full depth"
+        return f32, f"its depth ({cfg.n_layers} layers)"
     k = max(g for g in range(1, cfg.n_pattern_groups)
             if weight_bytes_f32(f32.with_groups(g)) < limit)
     cut = f32.with_groups(k)
     return cut, (f"{k} of {cfg.n_pattern_groups} pattern groups "
                  f"({cut.n_layers} layers; {weight_bytes_f32(f32)} float32 "
-                 f"bytes at full depth)")
+                 f"bytes at its depth)")
 
 
 def phase_lm_serve(label: str, arch: str, seed: int, power: str,
@@ -3241,14 +3261,14 @@ def phase_lm_serve(label: str, arch: str, seed: int, power: str,
 
 
 def phase_lm(seed: int, power: str) -> dict:
-    """Phase 16: gemma3-12b, 16(a) and 16(b); its float32 check runs at
-    full depth (47.1 GB of weights, the card's only tenant by then), and
+    """Phase 16: gemma3-12b, 16(a) and 16(b) (at ``LM_KIND_GROUPS``'
+    depth); its float32 check runs at that depth (no weight limit), and
     its parameters must be the config's count and the final norm's."""
     from repro_torch.configs import get_config
 
     phase_lm_group("16(a)", (LM_ARCH,), seed, power)
     out = phase_lm_serve("16(b)", LM_ARCH, seed, power, f32_limit=None)
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(LM_ARCH).with_groups(LM_KIND_GROUPS[LM_ARCH])
     # the analytic count leaves out the final norm's d_model
     check(out["params"] == cfg.n_params() + cfg.d_model,
           f"LM: {out['params']} parameters, the config counts "
@@ -3279,6 +3299,9 @@ LM_TRAIN_ARCH = "minitron-4b"  # 18(b), the reference's training example
 #: 18(a)'s archs: dense GQA, MLA with the MoE dispatch, the SSD scan
 LM_TRAIN_GROUP_ARCHS = ("minitron-4b", "deepseek-v2-lite-16b", "mamba2-2.7b")
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 1, 2048, 5
+#: 18(b)'s depth: minitron-4b's first 4 of 32 layers, cut for phase 19's
+#: time
+LM_TRAIN_GROUPS = 4
 
 
 def lm_train_opt():
@@ -3409,7 +3432,7 @@ def phase_lm_train(seed: int, power: str) -> dict:
     t_phase = time.perf_counter()
     phase_lm_train_group(seed, power)
     t0 = time.perf_counter()
-    cfg = get_config(LM_TRAIN_ARCH)
+    cfg = get_config(LM_TRAIN_ARCH).with_groups(LM_TRAIN_GROUPS)
     B, S, n = LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS
     batch = synthetic_batch(cfg, 0, S, B, device="cuda")
     first = _train_run(cfg, seed, batch, n)
@@ -3503,17 +3526,60 @@ LM_MESH_LOSS_BAR, LM_MESH_PARAM_BAR = 1e-3, 1e-2
 #: and each gradient leaf (of its largest |g|)
 LM_F32_BAR_MESH, LM_MESH_GRAD_BAR = 1e-6, 1e-5
 LM_MESH_TIMEOUT = 300.0
+#: 19(d): every other layer kind at full width, one pattern group each
+LM_MESH_KIND_ARCHS = ("deepseek-v2-lite-16b", "mamba2-2.7b",
+                      "whisper-large-v3")
+#: Whisper's decoder positions (the dry run's ``WHISPER_SELF_LEN``); its
+#: batch carries its config's 1,500 frames
+LM_MESH_WHISPER_SEQ = 448
+#: 19(d)'s bf16 MoE drops: the mesh's count a layer within this share of
+#: the layer's copies of this process's. The two round a layer's input
+#: differently (float32 TP partials there, bf16 GEMMs here), so a token
+#: whose k-th and (k+1)-th router probabilities nearly tie may route
+#: otherwise and move the count (deepseek-v2-lite's group on an H100: 149
+#: against 150 of 12,288). ``_moe_routing`` prints such tokens, and holds
+#: the mesh's count exactly to the global capacity's over its own routing.
+#: The float32 case holds the counts equal.
+LM_MESH_DROP_SLACK = 1e-3
 
 
 def _host(tensors) -> dict:
     return {k: v.detach().to("cpu", copy=True) for k, v in tensors}
 
 
+class _Routes:
+    """Within the block, each call of the MoE router (``moe.route``) kept:
+    ``calls`` its ``(probs, experts)`` a call, on the host."""
+
+    def __enter__(self):
+        import repro_torch.models.moe as moe
+
+        self.calls, self._moe, self._route = [], moe, moe.route
+
+        def route(logits, topk):
+            probs, gate, eidx = self._route(logits, topk)
+            self.calls.append((probs.detach().cpu(), eidx.detach().cpu()))
+            return probs, gate, eidx
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+    def first_pass(self, cfg) -> list:
+        """The forward's calls, a MoE layer each in stack order (a remat
+        backward calls the router again after them)."""
+        from repro_torch.models.transformer import layer_specs
+
+        return self.calls[:sum(s.ffn == "moe" for s in layer_specs(cfg))]
+
+
 def _one_process(cfg, seed: int, batch: dict, grads: bool) -> dict:
     """This process's run on the card from ``seed`` (the mesh's ranks draw
     the same weights from it): one AdamW step (its loss, the weights after
     it, host copies) or, with ``grads``, one gradient pass (its loss, the
-    gradients)."""
+    gradients); each MoE layer's dropped copies and routing."""
     import torch
     from repro_torch.models.transformer import init_params
     from repro_torch.training.train import (
@@ -3526,20 +3592,47 @@ def _one_process(cfg, seed: int, batch: dict, grads: bool) -> dict:
     out = {}
     on_card = {k: v.cuda() for k, v in batch.items()}
     t0 = time.perf_counter()
-    if grads:
-        g, m = compute_grads(model, on_card)
-        out["grads"] = _host(g.items())
-        del g
-    else:
-        model, opt, m = make_train_step(cfg, lm_train_opt())(
-            model, init_train_state(cfg, model), on_card)
-        out["after"] = _host(model.named_parameters())
-        del opt
-    torch.cuda.synchronize()
+    with _Routes() as routes:
+        if grads:
+            g, m = compute_grads(model, on_card)
+            out["grads"] = _host(g.items())
+            del g
+        else:
+            model, opt, m = make_train_step(cfg, lm_train_opt())(
+                model, init_train_state(cfg, model), on_card)
+            out["after"] = _host(model.named_parameters())
+            del opt
+        torch.cuda.synchronize()
     out.update(loss=float(m["loss"]), seconds=time.perf_counter() - t0,
-               peak=torch.cuda.max_memory_allocated())
+               peak=torch.cuda.max_memory_allocated(),
+               dropped=model.moe_dropped(), routes=routes.first_pass(cfg))
     del model, m, on_card
     torch.cuda.empty_cache()
+    return out
+
+
+def _cpu_grads(cfg, seed: int, batch: dict) -> dict:
+    """``_one_process``'s gradient pass on this process's CPU, float32, the
+    weights drawn on the card from ``seed`` (as the ranks draw them) and
+    copied over: the loss, the gradients and each MoE layer's drops and
+    routing."""
+    import torch
+    from repro_torch.models.transformer import Transformer, init_params
+    from repro_torch.training.train import compute_grads
+
+    model = init_params(cfg, seed, "cuda")
+    host = {k: v.detach().cpu() for k, v in model.named_parameters()}
+    del model
+    torch.cuda.empty_cache()
+    model = Transformer(cfg, host)
+    t0 = time.perf_counter()
+    with _Routes() as routes:
+        g, m = compute_grads(model, batch)
+    out = dict(grads={k: v.detach().clone() for k, v in g.items()},
+               loss=float(m["loss"]), dropped=model.moe_dropped(),
+               routes=routes.first_pass(cfg),
+               seconds=time.perf_counter() - t0)
+    del model, g, host
     return out
 
 
@@ -3595,8 +3688,147 @@ def _mesh_ranks(label: str, res, startup: list, cell: dict,
               f"the dry run's cell {cell['argument_bytes']}")
 
 
+def _kind_cases() -> list:
+    """19(d)'s cases: ``(label, cfg, batch, grads)``, one bf16 step each of
+    ``LM_MESH_KIND_ARCHS`` and deepseek's float32 gradients."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_batch
+
+    out = []
+    for arch in LM_MESH_KIND_ARCHS:
+        full = get_config(arch)
+        S = (LM_MESH_WHISPER_SEQ if full.family == "audio"
+             else LM_MESH_SEQ)
+        batch = synthetic_batch(full, 0, S, LM_MESH_BATCH, device="cpu")
+        out.append((f"(d) {arch}", full.with_groups(1), batch, False))
+        if full.n_experts:
+            out.append((f"(d) {arch} float32",
+                        dataclasses.replace(full.with_groups(1),
+                                            dtype=torch.float32),
+                        batch, True))
+    return out
+
+
+def _moe_routing(label: str, cfg, one: dict, m: dict, slack: int) -> None:
+    """Each MoE layer's drops and routing on the mesh (``m``: its
+    ``dropped`` and ``load``, the copies bound for each expert of the
+    global batch) against this process's (``one``: its ``dropped`` and
+    ``routes``). Checks: this process's count is the global capacity's
+    over its routing; the mesh's count is the global capacity's over the
+    mesh's own loads, exactly; and on this process's routing a capacity
+    of each data rank's tokens drops another count, so a mesh that kept
+    one would fail the check before (its gap to the global count printed
+    beside ``slack``). Prints where the loads part and the tokens that
+    explain it: a token whose k-th expert here has a copy fewer on the
+    mesh and whose (k+1)-th has one more, with its router margin (the k-th
+    probability less the (k+1)-th), and the batch's least margin."""
+    import torch
+
+    E, k, D = cfg.n_experts, cfg.topk, LM_MESH_SHAPE[0]
+    for i, (probs, eidx) in enumerate(one["routes"]):
+        T = eidx.shape[0]
+        C = int(cfg.capacity_factor * k * T / E) + 1
+        Tr = T // D  # the data ranks hold contiguous, equal rows
+        Cr = int(cfg.capacity_factor * k * Tr / E) + 1
+        here = torch.bincount(eidx.reshape(-1), minlength=E)
+        mesh = torch.tensor(m["load"][i])
+        ours = int((here - C).clamp(min=0).sum())
+        own = int((mesh - C).clamp(min=0).sum())
+        per_rank = sum(int((torch.bincount(
+            eidx[r * Tr:(r + 1) * Tr].reshape(-1), minlength=E) - Cr)
+            .clamp(min=0).sum()) for r in range(D))
+        top = probs.sort(dim=-1, descending=True, stable=True)
+        margin = top.values[:, k - 1] - top.values[:, k]
+        diff = mesh - here
+        moved = ((diff < 0)[top.indices[:, k - 1]]
+                 & (diff > 0)[top.indices[:, k]]).nonzero()[:, 0]
+        parts = {int(e): int(diff[e]) for e in diff.nonzero()[:, 0]}
+        shown = ", ".join(
+            f"token {int(t)}: expert {int(top.indices[t, k - 1])} -> "
+            f"{int(top.indices[t, k])}, margin {float(margin[t]):.3g}"
+            for t in moved[:4])
+        print(f"LM 19{label} MoE layer {i}: C {C} of {T} tokens, dropped "
+              f"{m['dropped'][i]} on the mesh ({own} over its loads at C), "
+              f"{one['dropped'][i]} here ({ours} over this routing at C); "
+              f"a capacity of each data rank's {Tr} tokens (C {Cr}) would "
+              f"drop {per_rank} here (gap {per_rank - ours}, slack {slack}); "
+              f"the mesh's loads less this process's {parts or 'none'}; "
+              f"tokens that explain them {shown or 'none'}; the least "
+              f"margin {float(margin.min()):.3g} (token "
+              f"{int(margin.argmin())})")
+        check(ours == one["dropped"][i],
+              f"LM 19{label}: layer {i} here drops {one['dropped'][i]}, its "
+              f"routing {ours} at C {C}")
+        check(own == m["dropped"][i],
+              f"LM 19{label}: layer {i} on the mesh drops "
+              f"{m['dropped'][i]}, its loads {own} at C {C}")
+        check(per_rank != ours,
+              f"LM 19{label}: layer {i} drops {ours} at a data rank's "
+              f"capacity too: the batch does not tell the two apart")
+
+
+def _check_kind(label: str, cfg, batch: dict, grads: bool, res, one: dict,
+                startup: list, power: str) -> None:
+    """A 19(d) case against this process's run of it: the bf16 step's loss
+    and weights, or the float32 gradients; each MoE layer's dropped copies;
+    each rank's line and resident bytes (``_mesh_ranks``). The float32
+    gradients are held to the pass on this process's CPU (``_cpu_grads``):
+    this process's pass on the card parts from it by more than the mesh
+    does (deepseek's expert bank on an H100: 1.64e-5 of its largest |g|
+    against 3.95e-6 at (2, 4), ``tools/lm_mesh_f32.py``)."""
+    from repro_torch.launch.dryrun import run_cell
+
+    B, S = batch["tokens"].shape
+    info = dict(kind="train", seq_len=S, global_batch=B)
+    if "media" in batch:
+        info["media_len"] = batch["media"].shape[1]
+    cell = run_cell(cfg.name, "train", cfg=cfg, mesh_shape=LM_MESH_SHAPE,
+                    shape_info=info)
+    m = res.grads_metrics if grads else res.metrics[0]
+    loss = m["loss"]
+    gap, leaf = _worst(res.grads if grads else res.params,
+                       one["grads" if grads else "after"], relative=grads)
+    drops = m.get("dropped", [])
+    media = (f", {batch['media'].shape[1]} frames" if "media" in batch
+             else "")
+    peak = "" if grads else f", peak {one['peak']} B"
+    print(f"LM 19{label}: gloo x8, mesh {LM_MESH_SHAPE}, {cfg.name} "
+          f"({cfg.n_layers} layers{f' + {cfg.n_enc_layers} encoder' if cfg.n_enc_layers else ''}, "
+          f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, "
+          f"vocab {cfg.vocab}, {cfg.n_params()} parameters) "
+          f"{'float32 gradients' if grads else 'bf16 one step'}, B {B} x S "
+          f"{S}{media}: loss {loss:.9g} against this process's "
+          f"{one['loss']:.9g}{' on its CPU' if grads else ''} (gap "
+          f"{abs(loss - one['loss']):.3g}); worst "
+          f"{'gradient leaf' if grads else 'weight'} {leaf} {gap:.3g} "
+          f"(bar {LM_MESH_GRAD_BAR if grads else LM_MESH_PARAM_BAR:g}); MoE "
+          f"dropped copies a layer {drops} of {B * S * cfg.topk} (this "
+          f"process {one['dropped']}); this process {one['seconds']:.3f} s"
+          f"{peak}; card {power}")
+    _mesh_ranks(label, res, startup, cell, power)
+    if grads:
+        check(abs(loss - one["loss"]) <= LM_F32_BAR_MESH * abs(one["loss"]),
+              f"LM 19{label}: loss {loss} against {one['loss']}")
+        check(gap <= LM_MESH_GRAD_BAR, f"LM 19{label}: {leaf} off by {gap}")
+    else:
+        check(np.isfinite(loss) and abs(loss - one["loss"]) < LM_MESH_LOSS_BAR,
+              f"LM 19{label}: loss {loss} against {one['loss']}")
+        check(gap < LM_MESH_PARAM_BAR, f"LM 19{label}: {leaf} off by {gap}")
+    copies = B * S * cfg.topk
+    slack = 0 if grads else int(LM_MESH_DROP_SLACK * copies)
+    check(len(drops) == len(one["dropped"]) and all(
+        abs(a - b) <= slack for a, b in zip(drops, one["dropped"])),
+          f"LM 19{label}: MoE layers dropped {drops} of {copies} copies on "
+          f"the mesh, {one['dropped']} in this process (slack {slack})")
+    if drops:
+        _moe_routing(label, cfg, one, m, slack)
+
+
 def phase_lm_mesh(seed: int, power: str) -> dict:
-    """Phase 19: (a) and (b) on one gloo ×8 spawn, then (c)."""
+    """Phase 19: (a), (b) and (d) on one gloo ×8 spawn, then (c)."""
     import dataclasses
 
     import torch
@@ -3618,17 +3850,24 @@ def phase_lm_mesh(seed: int, power: str) -> dict:
           f"{one_a['peak']} B; (b) {cfg_b.name} float32 gradients, loss "
           f"{one_b['loss']:.9g}, {one_b['seconds']:.3f} s, peak "
           f"{one_b['peak']} B; card {power}")
+    kinds = _kind_cases()
+    # the float32 cases' passes run on this process's CPU after the spawn
+    ones = [None if g else _one_process(cfg, seed, b, grads=False)
+            for _, cfg, b, g in kinds]
     opt_cfg = lm_train_opt()
     t0 = time.perf_counter()
     run = run_train_mesh_cases(
         [TrainCase(cfg_a, seed, batch, opt_cfg=opt_cfg, repeats=2,
                    keep=("params",)),
          TrainCase(cfg_b, seed, batch, opt_cfg=opt_cfg, steps=0,
-                   keep=("grads",))],
+                   keep=("grads",))]
+        + [TrainCase(cfg, seed, b, opt_cfg=opt_cfg, steps=0 if g else 1,
+                     keep=("grads",) if g else ("params",))
+           for _, cfg, b, g in kinds],
         LM_MESH_SHAPE, device="cuda", backend="gloo",
         timeout=LM_MESH_TIMEOUT)
     gloo_s = time.perf_counter() - t0
-    res_a, res_b = run.results
+    res_a, res_b = run.results[:2]
     info = dict(kind="train", seq_len=S, global_batch=B)
     cells = [run_cell(c.name, "train", cfg=c, mesh_shape=LM_MESH_SHAPE,
                       shape_info=info) for c in (cfg_a, cfg_b)]
@@ -3670,7 +3909,12 @@ def phase_lm_mesh(seed: int, power: str) -> dict:
     check(abs(loss_b - one_b["loss"]) <= LM_F32_BAR_MESH * abs(one_b["loss"]),
           f"LM 19(b): loss {loss_b} against {one_b['loss']}")
     check(ggap <= LM_MESH_GRAD_BAR, f"LM 19(b): {gleaf} off by {ggap}")
-    del res_b, one_b, run
+    del res_b, one_b
+    for (label, cfg, b, g), res, one in zip(kinds, run.results[2:], ones):
+        _check_kind(label, cfg, b, g, res,
+                    _cpu_grads(cfg, seed, b) if g else one, run.startup,
+                    power)
+    del run, ones
 
     t0 = time.perf_counter()
     one = run_train_mesh_cases(

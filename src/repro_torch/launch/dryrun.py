@@ -281,9 +281,12 @@ def _nbytes(t) -> int:
     return t.numel() * t.element_size()
 
 
-def _media_len(cfg, S: int) -> int:
-    """Media tokens a sample: Whisper's encoder frames are the shape's
-    sequence length; the VLM's patches its config's."""
+def _media_len(cfg, S: int, info: dict | None = None) -> int:
+    """Media tokens a sample: ``info["media_len"]`` where given; else
+    Whisper's encoder frames are the shape's sequence length and the VLM's
+    patches its config's."""
+    if info and "media_len" in info:
+        return info["media_len"]
     return S if cfg.family == "audio" else cfg.n_media_tokens
 
 
@@ -317,8 +320,9 @@ def cell_arguments(cfg, info: dict, mesh, param_mode: str = "train"):
                        for k, t in params.items()}
         out["step"] = {"step": (meta((), torch.int32), ())}
         batch = batch_specs(cfg, S, B)
-        if audio:
-            batch["media"] = meta((B, S, cfg.d_model), cfg.dtype)
+        if audio or "media_len" in info:
+            batch["media"] = meta((B, _media_len(cfg, S, info), cfg.d_model),
+                                  cfg.dtype)
         bspecs = batch_specs_tree(batch, mesh)
         out["batch"] = {k: (t, bspecs[k]) for k, t in batch.items()}
         return out
@@ -331,7 +335,8 @@ def cell_arguments(cfg, info: dict, mesh, param_mode: str = "train"):
         toks = meta((B, self_len), torch.int32)
         out["tokens"] = {"tokens": (toks, batch_specs_tree(toks, mesh))}
         if cfg.family in ("audio", "vlm"):
-            media = meta((B, _media_len(cfg, S), cfg.d_model), cfg.dtype)
+            media = meta((B, _media_len(cfg, S, info), cfg.d_model),
+                         cfg.dtype)
             out["media"] = {"media": (media, batch_specs_tree(media, mesh))}
     else:
         tok = meta((B, 1), torch.int32)
@@ -524,7 +529,8 @@ def run_cell(arch: str, shape: str, multi_pod: bool = False, cfg=None,
     """One (arch × shape) cell a GPU of the (16, 16) mesh, or (2, 16, 16)
     for ``multi_pod``, or ``mesh_shape`` (e.g. ``(1, 1)``: one GPU); the
     shape ``SHAPES[shape]`` or ``shape_info`` (``seq_len``,
-    ``global_batch``, ``kind``, optionally ``cache_len``), which skips
+    ``global_batch``, ``kind``, optionally ``cache_len`` and
+    ``media_len``, a sample's media tokens), which skips
     ``cell_supported``'s check. ``param_mode="serve"`` takes the
     weight-stationary specs; ``flat_heads`` prices the attention of
     ``train`` and ``prefill`` as the reference's ``set_flat_heads(True)``
@@ -569,7 +575,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool = False, cfg=None,
         pspecs = {k: s for k, (_, s) in args["params"].items()}
         audio = cfg.family == "audio"
         tok_len = WHISPER_SELF_LEN if audio and kind == "prefill" else S
-        work = lm_work(cfg, B, tok_len, kind, _media_len(cfg, S),
+        work = lm_work(cfg, B, tok_len, kind, _media_len(cfg, S, info),
                        info.get("cache_len", WHISPER_SELF_LEN if audio
                                 else S))
         flops = f32 = act = 0.0

@@ -30,10 +30,12 @@ cache fields (``serving/cache.py::cache_leaves``).
 with ``jax.jit(..., in_shardings=to_shardings(...))``; PyTorch needs one
 process a rank. :class:`ProcessGrid` is a rank's place in a (data, model)
 grid over ``torch.distributed`` (gloo, or NCCL with a GPU a rank): what it
-holds of each weight, moment and batch is the spec's shard
-(``shard_index``), and the model built on it (``models/transformer.py``
-with ``grid=``) runs the dense GQA layers FSDP over 'data' and tensor-
-and vocab-parallel over 'model'. :func:`run_train_mesh` spawns the ranks
+holds of each weight, moment and batch (media included) is the spec's
+shard (``shard_index``), and the model built on it
+(``models/transformer.py`` with ``grid=``) runs every layer kind FSDP over
+'data' and tensor-, expert- and vocab-parallel over 'model' (a leaf the
+spec leaves whole over 'model' runs whole there); its MoE layers keep the
+global batch's capacity. :func:`run_train_mesh` spawns the ranks
 (``python -m repro_torch.launch.lm_mesh rank <workdir> <r>``), each with
 its shards, and gathers their weights, moments and gradients back whole.
 
@@ -558,7 +560,9 @@ class TrainResult:
     """One case, gathered on the host: each kept tree ``{port name: CPU
     tensor}`` (None if not kept); ``metrics`` each step's ``loss``,
     ``aux``, ``grad_norm`` and ``lr`` (every rank's are the same: rank
-    0's), ``grads_metrics`` the gradient pass's; ``ranks`` a dict a rank:
+    0's), with MoE layers ``dropped`` and ``load`` (each layer's dropped
+    copies of the global batch and its copies an expert),
+    ``grads_metrics`` the gradient pass's; ``ranks`` a dict a rank:
     ``resident_bytes`` (its shards of the weights, moments, step and
     batch), ``bytes`` (``GRID_BYTES`` over the first run's steps) and
     ``collective_seconds`` (``GRID_SECONDS``, the same),
@@ -763,8 +767,15 @@ def run_train_mesh_cases(cases, mesh_shape, *, device=None,
 # the rank process
 # ---------------------------------------------------------------------------
 
-def _floats(metrics: dict) -> dict:
-    return {k: float(v) for k, v in metrics.items()}
+def _floats(metrics: dict, model) -> dict:
+    """A pass's metrics as floats, and with MoE layers ``dropped`` and
+    ``load``: each one's dropped copies of the global batch (its last
+    slice's) and the copies bound for each expert, in stack order."""
+    out = {k: float(v) for k, v in metrics.items()}
+    drops = model.moe_dropped()
+    if drops:
+        out.update(dropped=drops, load=model.moe_loads())
+    return out
 
 
 def _rank_case(grid, case: TrainCase, path: str, device) -> tuple:
@@ -830,7 +841,7 @@ def _rank_case(grid, case: TrainCase, path: str, device) -> tuple:
                       grads_bytes=dict(grid.bytes),
                       grads_collective_seconds=dict(grid.seconds))
         out["grads"] = {k: g.cpu() for k, g in grads.items()}
-        report["grads_metrics"] = _floats(gm)
+        report["grads_metrics"] = _floats(gm, model)
         del grads
     step = make_train_step(cfg, case.opt_cfg or AdamWConfig(),
                            case.microbatches)
@@ -847,7 +858,7 @@ def _rank_case(grid, case: TrainCase, path: str, device) -> tuple:
             model, opt, m = step(model, opt, batch)
             sync()
             seconds.append(time.perf_counter() - t0)
-            metrics.append(_floats(m))
+            metrics.append(_floats(m, model))
         if rep == 0:
             first = trees(model, opt, TREES if case.repeats > 1
                           else case.keep)

@@ -177,14 +177,18 @@ def gqa_attention(p: dict, x, positions, *, n_heads: int, n_kv_heads: int,
     rows) and ``n_kv_heads`` KV heads, which a contiguous split keeps in
     their groups; ``wo`` is row-parallel. Where the spec splits ``wk``/
     ``wv`` below a head, the caller gathers them whole and ``kv_index``
-    picks each local query head's KV head (h // rep)."""
+    picks each local query head's KV head (h // rep), of ``cross_kv`` too
+    (which the caller projects with the same weights)."""
     B, S, d = x.shape
     if grid is not None:
         x = copy_to(x, grid, "model")
     q = (x @ p["wq"]).reshape(B, S, n_heads, head_dim)
     q = apply_rope(q, positions, rope_theta)
     if cross_kv is not None:
-        out = _attend(q, *cross_kv, None)
+        k, v = cross_kv
+        if kv_index is not None:
+            k, v = k[:, :, kv_index], v[:, :, kv_index]
+        out = _attend(q, k, v, None)
     else:
         k = (x @ p["wk"]).reshape(B, S, n_kv_heads, head_dim)
         v = (x @ p["wv"]).reshape(B, S, n_kv_heads, head_dim)
@@ -237,12 +241,22 @@ def _mla_attend(q_nope, q_rope, c_kv, k_rope, mask, p, H, hd, dtype):
 
 def mla_attention(p: dict, x, positions, *, n_heads: int, head_dim: int,
                   rope_dim: int, rope_theta: float,
-                  cache: MLACache | None = None, pos: int | None = None):
+                  cache: MLACache | None = None, pos: int | None = None,
+                  grid=None):
     """Returns out (B,S,d). ``p`` holds ``wq`` (d, H·(hd+rd)), ``w_dkv``
     (d, r), ``w_krope`` (d, rd), ``w_ukv`` (r, H·2hd) and ``wo`` (H·hd, d);
-    the modes and ``pos`` as ``gqa_attention``'s, always causal."""
+    the modes and ``pos`` as ``gqa_attention``'s, always causal.
+
+    On a live ``grid`` (training forward only) ``wq`` and ``w_ukv`` hold
+    this rank's ``n_heads`` heads (their columns are head-major) and
+    ``wo`` their rows, row-parallel; ``w_dkv`` and ``w_krope`` are whole,
+    so every rank computes the whole latent and rope key (the caller
+    passes them through ``copy_to``: each rank's heads give a part of
+    their gradients)."""
     B, S, d = x.shape
     H, hd, rd = n_heads, head_dim, rope_dim
+    if grid is not None:
+        x = copy_to(x, grid, "model")
     q = (x @ p["wq"]).reshape(B, S, H, hd + rd)
     q_nope, q_rope = q[..., :hd], q[..., hd:]
     q_rope = apply_rope(q_rope, positions, rope_theta)
@@ -259,5 +273,6 @@ def mla_attention(p: dict, x, positions, *, n_heads: int, head_dim: int,
         out = _mla_attend(q_nope, q_rope, cache.c_kv, cache.k_rope,
                           _cache_mask(positions, cache.pos, None), p, H, hd,
                           x.dtype)
-    y = out.reshape(B, S, H * hd) @ p["wo"]
+    out = out.reshape(B, S, H * hd)
+    y = out @ p["wo"] if grid is None else row_parallel(out, p["wo"], grid)
     return y.to(x.dtype)

@@ -100,6 +100,19 @@ class _Gather(torch.autograd.Function):
         return ctx.grid.reduce_scatter(g, ctx.axis, ctx.dim), None, None, None
 
 
+class _Join(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grid, axis, dim):
+        ctx.grid, ctx.axis, ctx.dim = grid, axis, dim
+        return grid.all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        grid = ctx.grid
+        part = g.chunk(grid.size(ctx.axis), ctx.dim)[grid.index(ctx.axis)]
+        return part.contiguous(), None, None, None
+
+
 class _CopyTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, grid, axis):
@@ -126,6 +139,14 @@ def gather(x, grid, axis: str, dim: int):
     FSDP gather over 'data'); its backward sums the gradients over the axis
     and keeps this rank's piece (a reduce-scatter)."""
     return x if grid.size(axis) == 1 else _Gather.apply(x, grid, axis, dim)
+
+
+def join(x, grid, axis: str, dim: int):
+    """``x``'s pieces over ``axis`` joined along ``dim`` in rank order, where
+    what follows runs whole, and alike, on every rank of the axis (the MoE
+    experts' outputs before the combine): its backward keeps this rank's
+    piece of the gradient, which every rank holds whole."""
+    return x if grid.size(axis) == 1 else _Join.apply(x, grid, axis, dim)
 
 
 def copy_to(x, grid, axis: str):

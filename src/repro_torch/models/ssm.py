@@ -17,7 +17,8 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.models.layers import silu
+from repro_torch.models.layers import row_parallel, silu
+from repro_torch.models.sharding import copy_to
 
 
 @dataclass
@@ -127,24 +128,56 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def mamba_block(p: dict, x, *, cfg, cache: SSMCache | None = None):
+def _own_heads(p: dict, cfg, grid):
+    """A grid rank's part of the block: its H/m heads' ``z``, ``x`` and
+    ``dt`` columns of the whole ``in_proj`` and its ``x`` channels of the
+    whole ``conv_w``/``conv_b``, with the ``B`` and ``C`` every head
+    shares, in the block's layout; ``(in_proj, conv_w, conv_b, d_inner,
+    heads)`` of this rank. Slices joined, so the backward copies."""
+    di, N, H = cfg.d_ssm_inner, cfg.ssm_state, cfg.n_ssm_heads
+    hd, m = cfg.ssm_head_dim, grid.size("model")
+    Hl = H // m
+    lo = grid.index("model") * Hl
+    xs = slice(lo * hd, (lo + Hl) * hd)  # this rank's heads' channels
+    w = p["in_proj"]
+    w_in = torch.cat([w[:, xs], w[:, di + xs.start:di + xs.stop],
+                      w[:, 2 * di:2 * di + 2 * N],
+                      w[:, 2 * di + 2 * N + lo:2 * di + 2 * N + lo + Hl]], 1)
+    conv_w = torch.cat([p["conv_w"][:, xs], p["conv_w"][:, di:]], 1)
+    conv_b = torch.cat([p["conv_b"][xs], p["conv_b"][di:]])
+    return w_in, conv_w, conv_b, Hl * hd, Hl
+
+
+def mamba_block(p: dict, x, *, cfg, cache: SSMCache | None = None,
+                grid=None):
     """The Mamba2 block: in_proj -> causal depthwise conv -> SSD -> gated
     out_proj. With ``cache`` a call of S > 1 tokens is a prefill from
     position 0 (it leaves the final state and the conv's last inputs in the
     cache) and a call of one token a decode step against it; both write
-    the cache in place."""
+    the cache in place.
+
+    On a live ``grid`` (training forward only) the rank runs its H/m heads:
+    ``in_proj``, ``conv_w`` and ``conv_b`` come whole (the caller gathers
+    them over 'model', or passes them through ``copy_to`` where the spec
+    leaves them whole: each rank's heads give a part of their gradients)
+    and ``_own_heads`` takes the rank's columns; ``A_log``, ``dt_bias``,
+    ``D`` and ``out_proj``'s rows are the rank's heads' shard, and
+    ``out_proj`` is row-parallel."""
     Bsz, S, d = x.shape
     di, N, H = cfg.d_ssm_inner, cfg.ssm_state, cfg.n_ssm_heads
     hd, K = cfg.ssm_head_dim, cfg.ssm_conv
+    w_in, conv_w, conv_b = p["in_proj"], p["conv_w"], p["conv_b"]
+    if grid is not None:
+        x = copy_to(x, grid, "model")
+        w_in, conv_w, conv_b, di, H = _own_heads(p, cfg, grid)
 
     # projection layout: z (di) | xBC (di + 2N) | dt (H)
-    zxbcdt = x @ p["in_proj"]
+    zxbcdt = x @ w_in
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di:2 * di + 2 * N]
     dt = zxbcdt[..., 2 * di + 2 * N:]
 
     # depthwise causal conv over xBC (an explicit window sum; K small)
-    conv_w = p["conv_w"]  # (K, di + 2N)
     decoding = cache is not None and S == 1
     if decoding:
         pads = torch.cat([cache.conv, xbc], dim=1)  # (B, K, .)
@@ -154,7 +187,7 @@ def mamba_block(p: dict, x, *, cfg, cache: SSMCache | None = None):
     conv = pads[:, 0:S] * conv_w[0]
     for i in range(1, K):
         conv = conv + pads[:, i:i + S] * conv_w[i]
-    conv = silu(conv + p["conv_b"])
+    conv = silu(conv + conv_b)
 
     xs = conv[..., :di].reshape(Bsz, S, H, hd)
     Bm = conv[..., di:di + N].float()
@@ -172,4 +205,6 @@ def mamba_block(p: dict, x, *, cfg, cache: SSMCache | None = None):
         cache.conv.copy_(new_conv)
     y = y + xs.float() * p["D"][:, None]
     y = y.reshape(Bsz, S, di).to(x.dtype) * silu(z)
+    if grid is not None:
+        return row_parallel(y, p["out_proj"], grid)
     return y @ p["out_proj"]

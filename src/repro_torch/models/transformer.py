@@ -32,11 +32,16 @@ where the reference wraps its scan body in ``jax.checkpoint``.
 On a live ``grid`` (``launch/lm_mesh.py::ProcessGrid``, one process a rank
 of a (data, model) mesh) the model is built from one rank's shards, split as
 the reference's ``param_specs`` (mode ``train``) split them, and runs the
-training forward of the dense GQA layers (``attn`` with a ``dense`` FFN):
-each layer gathers its leaves' FSDP ('data') axes as it starts and drops
-them as it ends (autograd keeps what its backward needs unless ``cfg.remat``
-recomputes the group, gathers included); attention heads, FFN columns and
-the vocab run over 'model'. Other kinds, caches and media are refused there.
+training forward of every kind: each layer (the encoder's too) gathers its
+leaves' FSDP ('data') axes as it starts and drops them as it ends (autograd
+keeps what its backward needs unless ``cfg.remat`` recomputes the group,
+gathers included). Over 'model' run attention, MLA and cross-attention
+heads, SSM heads (``in_proj``/``conv_*`` used whole, each rank taking its
+heads' columns), FFN columns, the experts (EP with the global capacity,
+``moe.moe_ffn``) and the vocab; a leaf the spec leaves whole over
+'model' (a vocab, an FFN or expert bank the axis does not divide) runs
+whole on every rank. ``check_grid`` refuses a 'model' axis that splits a
+query or SSM head. Caches are not used there.
 """
 
 from __future__ import annotations
@@ -227,35 +232,122 @@ class LayerCache:
                      if c is not None for t in c.tensors())
 
 
-def _cross_kv(cfg: ModelConfig, p, states, cache: CrossKV | None):
-    """The cross K/V of a layer: projected from ``states`` when they are
-    given (a forward, or a prefill, which writes them into ``cache``), read
-    from a filled ``cache`` when not (a decode step)."""
-    if states is None:
-        if cache is None or not cache.filled:
-            raise ValueError(
-                f"{cfg.name}: a cross layer needs media states, or caches "
-                "that a prefill with media has filled")
-        return cache.k, cache.v
-    k, v = cross_kv_project(p, states, n_kv_heads=cfg.n_kv_heads,
-                            head_dim=cfg.head_dim)
-    if cache is not None:
-        if cache.k.shape != k.shape:
-            raise ValueError(f"{cfg.name}: media K/V {tuple(k.shape)}, the "
-                             f"cache holds {tuple(cache.k.shape)}")
-        cache.k.copy_(k)
-        cache.v.copy_(v)
-        cache.filled = True
-    return k, v
+#: the leaves a rank of a grid uses whole, where the spec splits them over
+#: 'model' (gathered) or leaves them whole (``copy_to``): every rank runs
+#: all of MLA's latent and rope key and the SSM's ``B``/``C`` and conv,
+#: its heads giving a part of their gradients
+MODEL_WHOLE = frozenset({"attn.w_dkv", "attn.w_krope", "ssm.in_proj",
+                         "ssm.conv_w", "ssm.conv_b"})
+#: the K/V projections, used whole where the spec cuts them below a head
+KV_LEAVES = frozenset({"attn.wk", "attn.wv", "xattn.wk", "xattn.wv"})
 
 
-class DecoderLayer(nn.Module):
+class _Layer(nn.Module):
+    """What a decoder and an encoder layer share: their heads and their
+    weights as the products use them, in one process or on a live grid
+    (``launch/lm_mesh.py::ProcessGrid``), where they are this rank's."""
+
+    def _split_heads(self) -> None:
+        """The layer's heads: all of them in one process. On a grid this
+        rank's H/m query heads, contiguous, and the KV heads they read.
+        Where the spec cuts ``wk``/``wv`` at whole heads (Hkv divisible by
+        m) the rank keeps its Hkv/m; where it cuts them below a head, or
+        not at all, the layer computes every KV head (the leaves gathered
+        over 'model', as GSPMD reshards them) and ``kv_index`` picks the
+        one each local query head reads."""
+        cfg, grid = self.cfg, self.grid
+        m = 1 if grid is None else grid.size("model")
+        H, Hkv = cfg.n_heads, cfg.n_kv_heads
+        self.heads, self.kv_heads, self.kv_index = H // m, Hkv // m, None
+        if Hkv % m:
+            lo = grid.index("model") * (H // m)
+            self.kv_heads = Hkv
+            self.kv_index = torch.arange(lo, lo + H // m) // (H // Hkv)
+
+    def _tp(self, name: str):
+        """The grid where the spec splits ``name`` over 'model' (the
+        products run tensor-parallel), else None (they run whole, alike
+        on every rank, or in one process)."""
+        if self.grid is None or "model" not in self.specs[name]:
+            return None
+        return self.grid
+
+    def _weights(self) -> dict:
+        """The layer's weights as its products use them, by name. On a
+        grid each leaf's FSDP axis gathered over 'data'; the
+        ``MODEL_WHOLE`` leaves, and ``wk``/``wv`` where ``_split_heads``
+        computes every KV head, whole over 'model' too (gathered, or
+        passed through ``copy_to`` where the spec leaves them whole: their
+        gradients are then summed over 'model', each rank's heads giving a
+        part)."""
+        grid, out = self.grid, {}
+        for name, w in self.named_parameters():
+            if grid is not None:
+                spec = self.specs[name]
+                if "data" in spec:
+                    w = gather(w, grid, "data", spec.index("data"))
+                if name in MODEL_WHOLE or (self.kv_index is not None
+                                           and name in KV_LEAVES):
+                    w = (gather(w, grid, "model", spec.index("model"))
+                         if "model" in spec else copy_to(w, grid, "model"))
+            out[name] = w
+        return out
+
+    def _attn_kw(self, device) -> dict:
+        cfg = self.cfg
+        return dict(n_heads=self.heads, n_kv_heads=self.kv_heads,
+                    head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+                    grid=self.grid,
+                    kv_index=(None if self.kv_index is None
+                              else self.kv_index.to(device)))
+
+    def _cross_kv(self, p: dict, states, cache: CrossKV | None):
+        """The layer's cross K/V heads of media or encoder ``states``:
+        projected from them when they are given (a forward, or a prefill,
+        which writes them into ``cache``), read from a filled ``cache``
+        when not (a decode step). On a grid the states are replicated over
+        'model' (each rank's heads give a part of their gradient) and no
+        cache is used."""
+        cfg = self.cfg
+        if states is None:
+            if cache is None or not cache.filled:
+                raise ValueError(
+                    f"{cfg.name}: a cross layer needs media states, or "
+                    "caches that a prefill with media has filled")
+            return cache.k, cache.v
+        if self.grid is not None:
+            states = copy_to(states, self.grid, "model")
+        k, v = cross_kv_project(p, states, n_kv_heads=self.kv_heads,
+                                head_dim=cfg.head_dim)
+        if cache is not None:
+            if cache.k.shape != k.shape:
+                raise ValueError(f"{cfg.name}: media K/V {tuple(k.shape)}, "
+                                 f"the cache holds {tuple(cache.k.shape)}")
+            cache.k.copy_(k)
+            cache.v.copy_(v)
+            cache.filled = True
+        return k, v
+
+
+def _sub(w: dict, group: str) -> dict:
+    pre = group + "."
+    return {k[len(pre):]: v for k, v in w.items() if k.startswith(pre)}
+
+
+class DecoderLayer(_Layer):
     """Pre-norm mixing (attention, MLA, SSM, both side by side, or
     cross-attention), Whisper's cross-attention to the encoder, then the
     FFN, each added to the stream. ``forward`` returns ``(x, aux)``: the
     MoE load-balance loss, or None for another FFN. A MoE layer keeps its
     last call's ``(aux, dropped)`` in ``moe_stats``, detached (device
-    scalars): they hold no autograd graph alive after a training step."""
+    scalars): they hold no autograd graph alive after a training step;
+    ``moe_copies`` is that call's token copies (T·k, the global batch's on
+    a grid) and ``moe_load`` the (E,) copies bound for each expert.
+
+    On a grid (the training forward; caches are not used) attention and
+    MLA run over this rank's heads, the SSM over its SSM heads,
+    cross-attention to the replicated media or encoder states, the FFN
+    tensor-parallel and the MoE FFN expert-parallel."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec, p: dict,
                  grid=None, specs: dict | None = None):
@@ -267,131 +359,95 @@ class DecoderLayer(nn.Module):
         for name in ("attn", "ssm", "xattn", "ffn"):
             setattr(self, name, _group(p, name))
         self.act = silu if cfg.act == "silu" else gelu
-        self.moe_stats = None
+        self.moe_stats = self.moe_copies = self.moe_load = None
         self.grid, self.specs = grid, specs
-        if grid is not None:
-            self._split_heads()
+        self._split_heads()
 
-    def _split_heads(self) -> None:
-        """This rank's heads on the grid: H/m query heads, contiguous, and
-        the KV heads they read. Where the spec cuts ``wk``/``wv`` at whole
-        heads (Hkv divisible by m) the rank keeps its Hkv/m; where it cuts
-        them below a head, or not at all, the layer computes every KV head
-        (the leaves gathered over 'model', as GSPMD reshards them) and
-        ``kv_index`` picks the one each local query head reads."""
+    def _ffn(self, h2, f: dict):
+        """The FFN over ``h2`` with its weights ``f``."""
         cfg, grid = self.cfg, self.grid
-        m, H, Hkv = grid.size("model"), cfg.n_heads, cfg.n_kv_heads
-        lo = grid.index("model") * (H // m)
-        self.heads, self.kv_heads, self.kv_index = H // m, Hkv // m, None
-        if Hkv % m:
-            self.kv_heads = Hkv
-            self.kv_index = torch.arange(lo, lo + H // m) // (H // Hkv)
-
-    def _gathered(self) -> dict:
-        """The layer's weights as its products use them: each leaf's FSDP
-        axis gathered over 'data'; ``wk``/``wv`` gathered over 'model' too
-        where ``_split_heads`` computes every KV head (their gradients then
-        summed over 'model': each rank's query heads give a part)."""
-        grid, out = self.grid, {}
-        for name, w in self.named_parameters():
-            spec = self.specs[name]
-            if "data" in spec:
-                w = gather(w, grid, "data", spec.index("data"))
-            if self.kv_index is not None and name in ("attn.wk", "attn.wv"):
-                w = (gather(w, grid, "model", spec.index("model"))
-                     if "model" in spec else copy_to(w, grid, "model"))
-            out[name] = w
-        return out
-
-    def _grid_forward(self, x, positions):
-        cfg, grid = self.cfg, self.grid
-        w = self._gathered()
-        attn = {k: w[f"attn.{k}"] for k in ("wq", "wk", "wv", "wo")}
-        h = rms_norm(x, w["ln1"], cfg.norm_eps)
-        x = x + gqa_attention(
-            attn, h, positions, n_heads=self.heads, n_kv_heads=self.kv_heads,
-            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
-            window=self.spec.window, grid=grid,
-            kv_index=(None if self.kv_index is None
-                      else self.kv_index.to(x.device)))
-        h2 = rms_norm(x, w["ln2"], cfg.norm_eps)
-        x = x + swiglu_ffn(h2, w["ffn.w_gate"], w["ffn.w_up"],
-                           w["ffn.w_down"], self.act, grid)
-        return x, None
+        if self.spec.ffn == "moe":
+            y, (aux, dropped), load = moe_ffn(
+                f, h2, n_experts=cfg.n_experts, topk=cfg.topk,
+                capacity_factor=cfg.capacity_factor,
+                n_shared=cfg.n_shared_experts, grid=grid,
+                shared_grid=(self._tp("ffn.ws_gate")
+                             if cfg.n_shared_experts else None))
+            self.moe_stats = (aux.detach(), dropped.detach())
+            self.moe_load = load.detach()
+            rows = h2.shape[0] * (1 if grid is None else grid.size("data"))
+            self.moe_copies = rows * h2.shape[1] * cfg.topk
+            return y, aux
+        return swiglu_ffn(h2, f["w_gate"], f["w_up"], f["w_down"], self.act,
+                          self._tp("ffn.w_gate")), None
 
     def forward(self, x, positions, cache: LayerCache | None = None,
                 pos: int | None = None, media_states=None, enc_states=None):
-        if self.grid is not None:
-            return self._grid_forward(x, positions)
-        cfg, spec = self.cfg, self.spec
-        h = rms_norm(x, self.ln1, cfg.norm_eps)
-        kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                  head_dim=cfg.head_dim, rope_theta=cfg.rope_theta)
+        cfg, spec, grid = self.cfg, self.spec, self.grid
+        w, kw = self._weights(), self._attn_kw(x.device)
         c = cache or LayerCache()
+        h = rms_norm(x, w["ln1"], cfg.norm_eps)
         if spec.kind in ("attn", "hybrid"):
-            a = gqa_attention(self.attn, h, positions, window=spec.window,
-                              cache=c.kv, pos=pos, **kw)
+            a = gqa_attention(_sub(w, "attn"), h, positions,
+                              window=spec.window, cache=c.kv, pos=pos, **kw)
             if spec.kind == "attn":
                 x = x + a
         if spec.kind == "cross":
-            mkv = _cross_kv(cfg, self.attn, media_states, c.xkv)
-            x = x + gqa_attention(self.attn, h, positions, cross_kv=mkv, **kw)
+            attn = _sub(w, "attn")
+            mkv = self._cross_kv(attn, media_states, c.xkv)
+            x = x + gqa_attention(attn, h, positions, cross_kv=mkv, **kw)
         elif spec.kind == "mla":
             x = x + mla_attention(
-                self.attn, h, positions, n_heads=cfg.n_heads,
-                head_dim=cfg.head_dim, rope_dim=cfg.mla_rope_dim, rope_theta=cfg.rope_theta,
-                cache=c.kv, pos=pos)
+                _sub(w, "attn"), h, positions, n_heads=self.heads,
+                head_dim=cfg.head_dim, rope_dim=cfg.mla_rope_dim,
+                rope_theta=cfg.rope_theta, cache=c.kv, pos=pos, grid=grid)
         elif spec.kind == "ssm":
-            x = x + mamba_block(self.ssm, h, cfg=cfg, cache=c.ssm)
+            x = x + mamba_block(_sub(w, "ssm"), h, cfg=cfg, cache=c.ssm,
+                                grid=grid)
         elif spec.kind == "hybrid":
-            m = mamba_block(self.ssm, h, cfg=cfg, cache=c.ssm)
-            x = x + a * self.mix_a + m * self.mix_s
+            m = mamba_block(_sub(w, "ssm"), h, cfg=cfg, cache=c.ssm,
+                            grid=grid)
+            x = x + a * w["mix_a"] + m * w["mix_s"]
 
         if len(self.xattn):  # whisper decoder: cross-attend to the encoder
-            hx = rms_norm(x, self.ln_x, cfg.norm_eps)
-            ekv = _cross_kv(cfg, self.xattn, enc_states, c.ekv)
-            x = x + gqa_attention(self.xattn, hx, positions, cross_kv=ekv,
-                                  **kw)
+            hx = rms_norm(x, w["ln_x"], cfg.norm_eps)
+            xattn = _sub(w, "xattn")
+            ekv = self._cross_kv(xattn, enc_states, c.ekv)
+            x = x + gqa_attention(xattn, hx, positions, cross_kv=ekv, **kw)
 
         aux = None
         if spec.ffn != "none":
-            h2 = rms_norm(x, self.ln2, cfg.norm_eps)
-            f = self.ffn
-            if spec.ffn == "moe":
-                y, (aux, dropped) = moe_ffn(
-                    f, h2, n_experts=cfg.n_experts, topk=cfg.topk,
-                    capacity_factor=cfg.capacity_factor,
-                    n_shared=cfg.n_shared_experts)
-                self.moe_stats = (aux.detach(), dropped.detach())
-            else:
-                y = swiglu_ffn(h2, f["w_gate"], f["w_up"], f["w_down"],
-                               self.act)
+            y, aux = self._ffn(rms_norm(x, w["ln2"], cfg.norm_eps),
+                               _sub(w, "ffn"))
             x = x + y
         return x, aux
 
 
-class EncoderLayer(nn.Module):
+class EncoderLayer(_Layer):
     """Whisper's encoder layer: bidirectional self-attention, then a SwiGLU
-    FFN with gelu, each pre-norm and added to the stream."""
+    FFN with gelu, each pre-norm and added to the stream. On a grid:
+    head-parallel attention and a tensor-parallel FFN, as a decoder
+    layer's."""
 
-    def __init__(self, cfg: ModelConfig, p: dict):
+    def __init__(self, cfg: ModelConfig, p: dict, grid=None,
+                 specs: dict | None = None):
         super().__init__()
         self.cfg = cfg
         self.ln1 = _param(p["ln1"])
         self.ln2 = _param(p["ln2"])
         self.attn = _group(p, "attn")
         self.ffn = _group(p, "ffn")
+        self.grid, self.specs = grid, specs
+        self._split_heads()
 
     def forward(self, x, positions):
-        cfg = self.cfg
-        h = rms_norm(x, self.ln1, cfg.norm_eps)
-        x = x + gqa_attention(
-            self.attn, h, positions, causal=False, n_heads=cfg.n_heads,
-            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
-            rope_theta=cfg.rope_theta)
-        h2 = rms_norm(x, self.ln2, cfg.norm_eps)
-        f = self.ffn
-        return x + swiglu_ffn(h2, f["w_gate"], f["w_up"], f["w_down"], gelu)
+        cfg, w = self.cfg, self._weights()
+        h = rms_norm(x, w["ln1"], cfg.norm_eps)
+        x = x + gqa_attention(_sub(w, "attn"), h, positions, causal=False,
+                              **self._attn_kw(x.device))
+        h2 = rms_norm(x, w["ln2"], cfg.norm_eps)
+        return x + swiglu_ffn(h2, w["ffn.w_gate"], w["ffn.w_up"],
+                              w["ffn.w_down"], gelu, self._tp("ffn.w_gate"))
 
 
 def _arange(S: int, B: int, device) -> torch.Tensor:
@@ -402,29 +458,28 @@ def _checkpoint(fn, *args):
     return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
-#: the leaves a grid must split over 'model' (vocab rows, query heads, FFN
-#: columns and rows): the rank computes only its part of their products
-MODEL_SPLIT = ("embed", "unembed", "wq", "wo", "w_gate", "w_up", "w_down")
-
-
-def check_grid(cfg: ModelConfig, specs: dict, grid) -> None:
-    """Refuse what a grid does not run: layers other than ``attn`` with a
-    ``dense`` FFN, an encoder, and a 'model' axis that does not split the
-    ``MODEL_SPLIT`` leaves (query heads included) into whole parts."""
-    bad = [s for s in layer_specs(cfg) if (s.kind, s.ffn) != ("attn", "dense")]
-    if bad or cfg.n_enc_layers:
-        raise ValueError(
-            f"{cfg.name}: a grid runs dense GQA layers (attn + dense FFN) "
-            f"only, not {sorted({(s.kind, s.ffn) for s in bad})}"
-            + (" or an encoder" if cfg.n_enc_layers else ""))
+def check_grid(cfg: ModelConfig, grid) -> None:
+    """Refuse what a grid does not run: a 'model' axis that splits a query
+    head (its size not dividing ``n_heads``, in a model with attention)
+    or an SSM head (not dividing ``n_ssm_heads``, in one with SSM
+    layers). Every kind of layer runs; a leaf the spec leaves whole over
+    'model' (a vocab, an FFN, an expert bank, ``in_proj`` that the axis
+    does not divide) runs whole on each rank, and KV heads the spec cuts
+    below a head are computed whole on each (``_split_heads``)."""
     m = grid.size("model")
-    split = [k for k, sp in specs.items()
-             if k.rsplit(".", 1)[-1] in MODEL_SPLIT and "model" not in sp]
-    if m > 1 and (cfg.n_heads % m or split):
+    if m == 1:
+        return
+    kinds = {s.kind for s in layer_specs(cfg)}
+    attends = bool(kinds & {"attn", "mla", "cross", "hybrid"}
+                   or cfg.n_enc_layers)
+    if attends and cfg.n_heads % m:
         raise ValueError(
-            f"{cfg.name}: 'model' of {m} must split the {cfg.n_heads} query "
-            f"heads and {sorted(split) or 'every'} of the vocab and FFN leaves"
-            " into whole parts")
+            f"{cfg.name}: 'model' of {m} splits a query head: the "
+            f"{cfg.n_heads} query heads do not divide into {m} parts")
+    if kinds & {"ssm", "hybrid"} and cfg.n_ssm_heads % m:
+        raise ValueError(
+            f"{cfg.name}: 'model' of {m} splits an SSM head: the "
+            f"{cfg.n_ssm_heads} SSM heads do not divide into {m} parts")
 
 
 class Transformer(nn.Module):
@@ -440,7 +495,7 @@ class Transformer(nn.Module):
         specs = None if grid is None else grid.param_specs(cfg)
         shapes = param_shapes(cfg)
         if grid is not None:
-            check_grid(cfg, specs, grid)
+            check_grid(cfg, grid)
             shapes = {k: grid.shard_shape(specs[k], s)
                       for k, s in shapes.items()}
         if set(params) != set(shapes):
@@ -467,8 +522,14 @@ class Transformer(nn.Module):
                          None if grid is None else sub(f"layers.{i}.", specs))
             for i, spec in enumerate(layer_specs(cfg)))
         self.encoder = nn.ModuleList(
-            EncoderLayer(cfg, sub(f"encoder.{j}."))
+            EncoderLayer(cfg, sub(f"encoder.{j}."), grid,
+                         None if grid is None else sub(f"encoder.{j}.", specs))
             for j in range(cfg.n_enc_layers))
+        #: the grid where the spec splits the vocab over 'model' (embedding,
+        #: logits and loss vocab-parallel), else None: the table runs whole
+        #: on every rank
+        self.vocab_grid = (grid if grid is not None and "model" in
+                           specs["embed"] else None)
         if cfg.n_enc_layers:
             self.enc_final_norm = _param(params["enc_final_norm"])
 
@@ -552,23 +613,38 @@ class Transformer(nn.Module):
         return [layer.moe_stats for layer in self.layers
                 if layer.spec.ffn == "moe"]
 
+    def moe_dropped(self) -> list[int]:
+        """The copies every MoE layer's last call dropped, in stack order
+        (on a grid the global batch's: every rank's count is the same)."""
+        return [round(float(layer.moe_stats[1]) * layer.moe_copies)
+                for layer in self.layers if layer.spec.ffn == "moe"]
+
+    def moe_loads(self) -> list[list[int]]:
+        """The copies bound for each expert in every MoE layer's last call,
+        before the capacity, in stack order (on a grid the global
+        batch's)."""
+        return [layer.moe_load.tolist() for layer in self.layers
+                if layer.spec.ffn == "moe"]
+
     def forward(self, tokens, media=None, *, with_aux: bool = False):
         """The causal forward from position 0: float32 logits (B, S, vocab),
         and with ``with_aux`` the reference's second output too,
         ``(logits, aux)``: the MoE load-balance losses summed in stack
         order (float32 0 without MoE layers)."""
         B, S = tokens.shape
-        x = embed(tokens, self._table("embed"), self.grid).to(self.cfg.dtype)
+        x = embed(tokens, self._table("embed"), self.vocab_grid).to(
+            self.cfg.dtype)
         x, aux = self.apply_stack(x, _arange(S, B, tokens.device),
                                   **self.media_states(media))
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         name = "embed" if self.cfg.tie_embeddings else "unembed"
-        logits = unembed(x, self._table(name), self.grid)
+        logits = unembed(x, self._table(name), self.vocab_grid)
         return (logits, aux) if with_aux else logits
 
     def _table(self, name: str) -> torch.Tensor:
         """The embedding or unembedding table; on a grid this rank's vocab
-        rows, gathered over 'data'."""
+        rows (all of them where the spec leaves the vocab whole over
+        'model'), gathered over 'data'."""
         t = getattr(self, name)
         if self.grid is None or "data" not in self.specs[name]:
             return t

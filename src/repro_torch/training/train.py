@@ -36,12 +36,12 @@ def ce_loss(model, batch: dict):
     "aux"})``."""
     logits, aux = model(batch["tokens"], batch.get("media"), with_aux=True)
     labels = batch["labels"].long()
-    grid = model.grid
-    if grid is None or grid.size("model") == 1:
+    grid, vocab_grid = model.grid, model.vocab_grid
+    if vocab_grid is None or vocab_grid.size("model") == 1:
         logp = torch.log_softmax(logits, dim=-1)
         nll = -torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
     else:
-        nll = _vocab_parallel_nll(logits, labels.clamp(min=0), grid)
+        nll = _vocab_parallel_nll(logits, labels.clamp(min=0), vocab_grid)
     mask = (labels >= 0).to(torch.float32)
     if grid is None:
         loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

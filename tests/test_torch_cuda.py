@@ -1197,6 +1197,43 @@ def test_lm_mesh_gloo_on_card_matches_the_cpu_grid(cuda, shape):
     assert all(r["bytes"]["staged"] == 0 for r in cpu.ranks)
 
 
+def test_lm_mesh_kinds_gloo_on_card_match_the_cpu_grid(cuda):
+    """The other layer kinds at (2, 4) under gloo ×8 on one card against
+    the same grid on the CPU, float32: reduced deepseek-v2-lite (MLA, the
+    experts over 'model' with the global capacity at a capacity factor of
+    1.0, which drops copies; shared experts) and mamba2 (SSM heads, whole
+    ``in_proj`` gathered over 'model'). Each MoE layer's dropped copies
+    equal the CPU grid's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.launch.lm_mesh import TrainCase, run_train_mesh_cases
+    from repro_torch.launch.mesh import visible_gpus
+    from repro_torch.models.transformer import param_dtype, param_shapes
+
+    cases = []
+    for arch in ("deepseek-v2-lite-16b", "mamba2-2.7b"):
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  dtype=torch.float32, capacity_factor=1.0)
+        rng = np.random.default_rng(0)
+        params = {k: torch.from_numpy((rng.standard_normal(s) * 0.02).astype(
+            np.float32)).to(param_dtype(cfg, k))
+            for k, s in param_shapes(cfg).items()}
+        cases.append(TrainCase(cfg, params, synthetic_batch(
+            cfg, 0, 32, 8, device="cpu"), keep=("params", "grads")))
+    cpu = run_train_mesh_cases(cases, (2, 4), device="cpu", timeout=300)
+    card = run_train_mesh_cases(cases, (2, 4), device="cuda",
+                                backend="gloo", gpus=visible_gpus()[:1],
+                                timeout=300)
+    for got, want in zip(card.results, cpu.results):
+        _lm_mesh_close(got, want)
+        assert got.metrics[0].get("dropped") == want.metrics[0].get(
+            "dropped")
+        assert all(r["bytes"]["staged"] > 0 for r in got.ranks)
+    assert sum(card.results[0].metrics[0]["dropped"]) > 0
+
+
 def test_lm_mesh_nccl_one_rank_equals_one_process(cuda):
     """run_train_mesh under NCCL at (1, 1), bf16: the one-process step on
     the card, bit for bit (a one-rank grid runs its arithmetic)."""

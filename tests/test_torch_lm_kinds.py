@@ -231,7 +231,7 @@ def test_moe_ffn(T, cf, shared):
     rng = np.random.default_rng(15 + shared)
     p, x = _moe_p(15, shared), rng.standard_normal((*T, D), dtype=np.float32)
     kw = dict(n_experts=E, topk=K, capacity_factor=cf, n_shared=shared)
-    y, (aux, dropped) = tm.moe_ffn(_tp(p), _t(x), **kw)
+    y, (aux, dropped), load = tm.moe_ffn(_tp(p), _t(x), **kw)
     ry, (raux, rdropped) = rm.moe_ffn(p, x, **kw)
     print(f"T={T} capacity factor {cf} shared={shared}: dropped "
           f"{float(dropped):.4f}, router's least k-th/(k+1)-th gap "
@@ -241,6 +241,7 @@ def test_moe_ffn(T, cf, shared):
     n = T[0] * T[1] * K
     assert _dropped(dropped, n) == _dropped(rdropped, n)
     assert aux.dtype == dropped.dtype == torch.float32
+    assert load.shape == (E,) and int(load.sum()) == n
     if cf == 0.5:
         assert _dropped(dropped, n) >= 18
 
@@ -264,7 +265,7 @@ def test_moe_combine_adds_each_tokens_copies_in_order():
     p = {k: _t(v).to(torch.bfloat16) if k != "router" else _t(v)
          for k, v in _moe_p(17, 0).items()}
     x = _t(rng.standard_normal((2, 5, D), dtype=np.float32)).to(torch.bfloat16)
-    y, _ = tm.moe_ffn(p, x, n_experts=E, topk=K, capacity_factor=8.0)
+    y, _, _ = tm.moe_ffn(p, x, n_experts=E, topk=K, capacity_factor=8.0)
     # no drops at this capacity: each copy is its expert's FFN of the token
     xt = x.reshape(-1, D)
     _, gate, eidx = tm.route(xt.float() @ p["router"], K)

@@ -510,16 +510,22 @@ class _Grid:
 
 
 def test_grid_refuses_what_it_does_not_run():
-    """Other layer kinds, and a 'model' axis that splits a query head."""
+    """What a grid still refuses: a 'model' axis that splits a query head
+    (minitron's 4 at 8) or an SSM head (mamba2's 8 at 16). Every layer
+    kind runs now (MoE, MLA, SSM, cross and encoder layers), and so does a
+    vocab that 'model' does not divide (its table then runs whole)."""
     for arch in ("deepseek-v2-lite-16b", "mamba2-2.7b", "whisper-large-v3"):
-        cfg = tcfg.get_config(arch).reduced()
-        specs = lm_mesh.param_specs(cfg, lm_mesh.abstract_mesh((2, 2)))
-        with pytest.raises(ValueError, match="dense GQA"):
-            check_grid(cfg, specs, _Grid(2))
+        check_grid(tcfg.get_config(arch).reduced(), _Grid(2))
     _, tc = _cfgs()
-    specs = lm_mesh.param_specs(tc, lm_mesh.abstract_mesh((1, 8)))
-    with pytest.raises(ValueError, match="query heads"):
-        check_grid(tc, specs, _Grid(8))
+    with pytest.raises(ValueError, match="splits a query head"):
+        check_grid(tc, _Grid(8))
+    ssm = tcfg.get_config("mamba2-2.7b").reduced()
+    with pytest.raises(ValueError, match="splits an SSM head"):
+        check_grid(ssm, _Grid(16))
+    odd = dataclasses.replace(tc, vocab=250)
+    specs = lm_mesh.param_specs(odd, lm_mesh.abstract_mesh((2, 4)))
+    assert "model" not in specs["embed"]
+    check_grid(odd, _Grid(4))
 
 
 def test_launcher_refusals():
@@ -533,15 +539,13 @@ def test_launcher_refusals():
 
 
 def test_a_failing_rank_fails_the_run():
-    """A rank that raises (here every rank: a MoE config on the grid)
-    fails the run with its log, and no rank is left behind."""
-    cfg = tcfg.get_config("deepseek-v2-lite-16b").reduced()
-    arrays = {k: np.zeros(s, np.float32) for k, s in param_shapes(
-        cfg).items()}
-    arrays = {k: torch.from_numpy(a).to(
-        torch.float32 if k.rsplit(".", 1)[-1] == "router" else cfg.dtype)
-        for k, a in arrays.items()}
-    with pytest.raises(MeshFailed, match="dense GQA"):
+    """A rank that raises (here every rank: 3 query heads on a 'model'
+    axis of 2) fails the run with its log, and no rank is left behind."""
+    _, tc = _cfgs()
+    cfg = dataclasses.replace(tc, n_heads=3, n_kv_heads=1)
+    arrays = {k: torch.zeros(s, dtype=cfg.dtype)
+              for k, s in param_shapes(cfg).items()}
+    with pytest.raises(MeshFailed, match="splits a query head"):
         lm_mesh.run_train_mesh(cfg, arrays, None, synthetic_batch(
             cfg, 0, 8, 2, device="cpu"), (1, 2), device="cpu",
             timeout=TIMEOUT)
@@ -559,7 +563,9 @@ def test_mesh_modules_import_neither_jax_nor_repro():
         "import sys, torch.distributed as dist\n"
         "import repro_torch.launch.lm_mesh, repro_torch.models.sharding\n"
         "import repro_torch.models.transformer, repro_torch.convert\n"
-        "import repro_torch.training.train\n"
+        "import repro_torch.training.train, repro_torch.models.moe\n"
+        "import repro_torch.models.ssm, repro_torch.models.attention\n"
+        "import repro_torch.models.layers, repro_torch.launch.dryrun\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"

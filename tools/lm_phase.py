@@ -13,7 +13,9 @@ hymba-1.5b, whisper-large-v3 and llama-3.2-vision-90b) and/or phase 18
 lite-16b and mamba2-2.7b, gradients on the card against the CPU; (b)
 minitron-4b at full width and depth taking 5 AdamW steps, twice) and/or
 phase 19 (the train step on a (2, 4) mesh of gloo ranks sharing the card,
-against this process's, and NCCL x1 at (1, 1)). Needs no kernel build.
+against this process's: minitron-4b, then one group each of
+deepseek-v2-lite-16b, mamba2-2.7b and whisper-large-v3; and NCCL x1 at
+(1, 1)). Needs no kernel build.
 """
 
 from __future__ import annotations
