@@ -3827,15 +3827,219 @@ def _check_kind(label: str, cfg, batch: dict, grads: bool, res, one: dict,
         _moe_routing(label, cfg, one, m, slack)
 
 
-def phase_lm_mesh(seed: int, power: str) -> dict:
-    """Phase 19: (a), (b) and (d) on one gloo ×8 spawn, then (c)."""
+#: 19(e): serving under the reference's ``serve`` specs on (a)'s spawn, at
+#: full width and one pattern group each: GQA with windowed rings, MLA with
+#: the MoE (its ff over 'data'), Mamba2, Whisper's encoder and cross caches
+LM_SERVE_MESH_ARCHS = ("gemma3-12b", "deepseek-v2-lite-16b", "mamba2-2.7b",
+                       "whisper-large-v3")
+#: 19(e)'s float32 case (deepseek, one group), held to this process's CPU:
+#: a shorter prompt and fewer tokens, for the CPU's time
+LM_SERVE_F32_PROMPT, LM_SERVE_F32_GEN = 64, 8
+#: 19(e)'s bf16 bar on the logits against this process's serving: the
+#: reference's 0.25 (tests/test_models.py), or the bf16 gap that phase 16
+#: prints (gemma3's decode against its forward, two orderings of the same
+#: bf16 arithmetic) where that is larger
+LM_SERVE_BF16_BAR = 0.25
+
+
+def _serve_cases() -> list:
+    """19(e)'s cases: ``(label, cfg, prompts, media, cache_len, steps)``:
+    each of ``LM_SERVE_MESH_ARCHS`` in bf16, 4 requests of 32 tokens
+    (phase 16's 1,100-token prompts, past the 1,024 window, caches of
+    1,132; Whisper 64 tokens, 448 self slots, 1,500 frames), then
+    deepseek's group in float32 on 64-token prompts for 8 tokens."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_batch
+
+    out = []
+    for arch in LM_SERVE_MESH_ARCHS:
+        full = get_config(arch)
+        whisper = full.n_enc_layers > 0
+        S = LM_WHISPER_PROMPT if whisper else LM_PROMPT
+        batch = synthetic_batch(full, 0, S, LM_BATCH, device="cpu")
+        out.append((f"(e) {arch}", full.with_groups(1), batch["tokens"],
+                    batch.get("media"),
+                    LM_WHISPER_MAX_LEN if whisper else S + LM_GEN, LM_GEN))
+    full = get_config("deepseek-v2-lite-16b")
+    S = LM_SERVE_F32_PROMPT
+    batch = synthetic_batch(full, 0, S, LM_BATCH, device="cpu")
+    out.append(("(e) deepseek-v2-lite-16b float32", dataclasses.replace(
+        full.with_groups(1), dtype=torch.float32), batch["tokens"], None,
+        S + LM_SERVE_F32_GEN, LM_SERVE_F32_GEN))
+    return out
+
+
+def _one_serving(cfg, seed: int, prompts, media, tokens, cache_len: int,
+                 device: str) -> tuple:
+    """This process's serving of a 19(e) case, the weights drawn on the
+    card from ``seed`` as the ranks draw them (copied to the CPU for
+    ``device="cpu"``): a prefill of ``prompts`` and a decode step a token
+    of ``tokens`` (B, steps), the mesh's. Returns each step's logits (B,
+    steps, vocab) on the host, each call's MoE drops and the seconds."""
+    import torch
+    from repro_torch.models.transformer import Transformer, init_params
+    from repro_torch.serving.cache import make_caches
+    from repro_torch.serving.engine import decode_step, prefill
+
+    model = init_params(cfg, seed, "cuda")
+    if device == "cpu":
+        host = {k: v.detach().cpu() for k, v in model.named_parameters()}
+        del model
+        torch.cuda.empty_cache()
+        model = Transformer(cfg, host)
+    device = model.embed.device
+    t0 = time.perf_counter()
+    B, S = prompts.shape
+    caches = make_caches(cfg, B, cache_len,
+                         None if media is None else media.shape[1], device)
+    prompts, tokens = prompts.to(device), tokens.to(device)
+    media = None if media is None else media.to(device)
+    logits = [prefill(model, prompts, caches, media).cpu()]
+    drops = [model.moe_dropped()]
+    for i in range(tokens.shape[1] - 1):
+        logits.append(decode_step(model, caches, tokens[:, i:i + 1],
+                                  S + i).cpu())
+        drops.append(model.moe_dropped())
+    seconds = time.perf_counter() - t0
+    del model, caches
+    torch.cuda.empty_cache()
+    return torch.stack(logits, 1), drops, seconds
+
+
+def _serve_cells(cfg, B: int, S: int, media, cache_len: int) -> dict:
+    """The dry run's decode and prefill cells of a 19(e) case at
+    ``LM_MESH_SHAPE`` under the ``serve`` specs, and a rank's argument
+    bytes of each as the mesh holds them: Whisper's reference prefill
+    holds 448 decoder tokens, the smoke's its 64-token prompt."""
+    from repro_torch.launch.dryrun import (
+        cell_arguments, run_cell, sharded_bytes,
+    )
+    from repro_torch.launch.lm_mesh import abstract_mesh
+
+    audio = cfg.family == "audio"
+    out = {}
+    for kind in ("decode", "prefill"):
+        info = dict(kind=kind, global_batch=B, cache_len=cache_len,
+                    seq_len=media.shape[1] if audio else S)
+        if media is not None:
+            info["media_len"] = media.shape[1]
+        cell = run_cell(cfg.name, kind, cfg=cfg, mesh_shape=LM_MESH_SHAPE,
+                        shape_info=info, param_mode="serve")
+        held = cell["argument_bytes"]
+        if kind == "prefill" and audio:
+            mesh = abstract_mesh(LM_MESH_SHAPE)
+            args = cell_arguments(cfg, info, mesh, "serve")
+            held += (B // LM_MESH_SHAPE[0]) * S * 4 - sharded_bytes(
+                args["tokens"], mesh)
+        out[kind] = (cell, held)
+    return out
+
+
+def _check_serve(label: str, case: tuple, res, one: tuple, bar: float,
+                 relative: bool, power: str) -> None:
+    """A 19(e) case against this process's serving fed the mesh's tokens:
+    every step's logits within ``bar`` (of the largest |logit| with
+    ``relative``), the mesh's token this process's argmax wherever this
+    process's top-2 margin passes the bar, each call's MoE drops within
+    0.1 % of its copies (``LM_MESH_DROP_SLACK``; equal in float32), the
+    second run's bits the first's, and each rank's resident bytes the dry
+    run's arguments of the decode and of the prefill, exactly; its bytes
+    to the backend an axis printed beside the cells' collectives."""
+    import torch
+
+    _, cfg, prompts, media, cache_len, steps = case
+    logits, drops, one_s = one
+    B, S = prompts.shape
+    gaps = (res.logits - logits).abs().amax(dim=(0, 2))  # a step
+    tops = logits.abs().amax(dim=(0, 2))
+    worst = gaps / tops if relative else gaps
+    top2 = logits.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    sure = margin > (bar * tops[None, :] if relative else bar)
+    same = res.tokens == logits.argmax(-1).to(torch.int32)
+    slack = [0 if relative else int(LM_MESH_DROP_SLACK * B * (S if i == 0
+                                                             else 1)
+                                    * cfg.topk) for i in range(steps)]
+    drops_ok = all(len(a) == len(b) and all(abs(x - y) <= sl
+                                            for x, y in zip(a, b))
+                   for a, b, sl in zip(res.dropped, drops, slack))
+    differ = [rep for r in res.ranks for rep in r["repeats"] if rep["differ"]]
+    cells = _serve_cells(cfg, B, S, media, cache_len)
+    print(f"LM 19{label}: gloo x8, mesh {LM_MESH_SHAPE}, serve specs, "
+          f"{cfg.name} ({cfg.n_layers} layers"
+          f"{f' + {cfg.n_enc_layers} encoder' if cfg.n_enc_layers else ''},"
+          f" d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, "
+          f"vocab {cfg.vocab}) {str(cfg.dtype).split('.')[-1]}, B {B} x "
+          f"{S} prompt + {steps} tokens, caches of {cache_len}"
+          f"{f', {media.shape[1]} frames' if media is not None else ''}: "
+          f"worst step max |mesh - this process| {float(worst.max()):.6g}"
+          f"{' of the largest |logit|' if relative else ''} (bar {bar:g}; "
+          f"a step {[round(float(g), 6) for g in worst]}); tokens "
+          f"{int(same.sum())} of {same.numel()} this process's argmax, "
+          f"{int((~same & sure).sum())} off where its top-2 margin passes "
+          f"the bar ({int(sure.sum())} such); MoE drops a call "
+          f"{res.dropped[:3]}... against {drops[:3]}... (slack {slack[0]} "
+          f"at prefill, {slack[-1]} a step); a second run's bits the "
+          f"same: {not differ}; this process {one_s:.3f} s; card {power}")
+    for r, rank in enumerate(res.ranks):
+        held, b = rank["resident_bytes"], rank["bytes"]
+        dec_n = max(len(rank["step_seconds"]), 1)
+        line = []
+        for kind in ("prefill", "decode"):
+            cell, want = cells[kind]
+            got = held["params"] + held["caches"] + held[f"{kind}_inputs"]
+            bb = b[kind]
+            per = 1 if kind == "prefill" else dec_n
+            line.append(
+                f"{kind}: resident {got} B (the dry run's arguments a GPU "
+                f"{want}), to the backend a "
+                f"{'call' if kind == 'prefill' else 'step'} data "
+                f"{bb['data'] // per} B, model {bb['model'] // per} B "
+                f"(the cell's {cell['collective_breakdown']}), staged "
+                f"{bb['staged'] // per} B")
+            check(got == want, f"LM 19{label}: rank {r} holds {got} bytes "
+                  f"for a {kind}, the dry run's cell {want}")
+        st = rank["step_seconds"]
+        print(f"LM 19{label} rank {r}: {'; '.join(line)}; weights "
+              f"{held['params']} B, caches {held['caches']} B; prefill "
+              f"{rank['prefill_seconds']:.3f} s, decode a step median "
+              f"{statistics.median(st) if st else 0:.4f} s (min "
+              f"{min(st) if st else 0:.4f}, max {max(st) if st else 0:.4f}),"
+              f" in gloo {rank['collective_seconds']['decode']['backend']:.3f}"
+              f" s of the steps; peak {rank['peak_bytes']} B; weights drawn "
+              f"in {rank['load_s']:.1f} s; outputs written in "
+              f"{rank['save_s']:.1f} s; card {power}")
+    check(bool(torch.isfinite(res.logits).all()),
+          f"LM 19{label}: non-finite logits")
+    check(res.logits.shape == logits.shape,
+          f"LM 19{label}: logits {tuple(res.logits.shape)}, this process's "
+          f"{tuple(logits.shape)}")
+    check(float(worst.max()) <= bar,
+          f"LM 19{label}: logits off by {float(worst.max())} > {bar}")
+    check(not bool((~same & sure).any()),
+          f"LM 19{label}: the mesh picked another token where this "
+          f"process's margin passes the bar")
+    check(drops_ok, f"LM 19{label}: MoE drops {res.dropped} against "
+          f"{drops} (slack {slack})")
+    check(not differ, f"LM 19{label}: a second run's bits differ")
+
+
+def phase_lm_mesh(seed: int, power: str, bf16_gap: float = 0.0) -> dict:
+    """Phase 19: (a), (b), (d) and (e) on one gloo ×8 spawn, then (c).
+    ``bf16_gap``: phase 16's bf16 decode-against-forward gap, for 19(e)'s
+    bar."""
     import dataclasses
 
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import synthetic_batch
     from repro_torch.launch.dryrun import run_cell
-    from repro_torch.launch.lm_mesh import TrainCase, run_train_mesh_cases
+    from repro_torch.launch.lm_mesh import (
+        ServeCase, TrainCase, run_lm_mesh_cases,
+    )
 
     t_phase = time.perf_counter()
     full = get_config(LM_TRAIN_ARCH)
@@ -3855,19 +4059,23 @@ def phase_lm_mesh(seed: int, power: str) -> dict:
     ones = [None if g else _one_process(cfg, seed, b, grads=False)
             for _, cfg, b, g in kinds]
     opt_cfg = lm_train_opt()
+    serves = _serve_cases()
     t0 = time.perf_counter()
-    run = run_train_mesh_cases(
+    run = run_lm_mesh_cases(
         [TrainCase(cfg_a, seed, batch, opt_cfg=opt_cfg, repeats=2,
                    keep=("params",)),
          TrainCase(cfg_b, seed, batch, opt_cfg=opt_cfg, steps=0,
                    keep=("grads",))]
         + [TrainCase(cfg, seed, b, opt_cfg=opt_cfg, steps=0 if g else 1,
                      keep=("grads",) if g else ("params",))
-           for _, cfg, b, g in kinds],
+           for _, cfg, b, g in kinds]
+        + [ServeCase(cfg, seed, p, n, m, cache_len=L, repeats=2)
+           for _, cfg, p, m, L, n in serves],
         LM_MESH_SHAPE, device="cuda", backend="gloo",
         timeout=LM_MESH_TIMEOUT)
     gloo_s = time.perf_counter() - t0
     res_a, res_b = run.results[:2]
+    res_e = run.results[2 + len(kinds):]
     info = dict(kind="train", seq_len=S, global_batch=B)
     cells = [run_cell(c.name, "train", cfg=c, mesh_shape=LM_MESH_SHAPE,
                       shape_info=info) for c in (cfg_a, cfg_b)]
@@ -3914,10 +4122,21 @@ def phase_lm_mesh(seed: int, power: str) -> dict:
         _check_kind(label, cfg, b, g, res,
                     _cpu_grads(cfg, seed, b) if g else one, run.startup,
                     power)
-    del run, ones
+    del ones
+    t0 = time.perf_counter()
+    for case, res in zip(serves, res_e):
+        label, cfg, prompts, media, cache_len, _ = case
+        f32 = cfg.dtype == torch.float32
+        one = _one_serving(cfg, seed, prompts, media, res.tokens, cache_len,
+                           "cpu" if f32 else "cuda")
+        bar = LM_F32_BAR if f32 else max(LM_SERVE_BF16_BAR, bf16_gap)
+        _check_serve(label, case, res, one, bar, f32, power)
+    print(f"LM 19(e): checked against this process in "
+          f"{time.perf_counter() - t0:.1f} s; card {power}")
+    del run, res_e
 
     t0 = time.perf_counter()
-    one = run_train_mesh_cases(
+    one = run_lm_mesh_cases(
         [TrainCase(cfg_a, seed, batch, opt_cfg=opt_cfg,
                    keep=("params",))], (1, 1), device="cuda",
         backend="nccl", timeout=LM_MESH_TIMEOUT)
@@ -4033,13 +4252,13 @@ def main(argv=None) -> int:
     lap("15")
     del pg, g, modes  # phase 16 holds up to 54 GB of the card
     torch.cuda.empty_cache()
-    phase_lm(args.seed, built["power"])
+    lm = phase_lm(args.seed, built["power"])
     lap("16")
     phase_lm_kinds(args.seed, built["power"])
     lap("17")
     phase_lm_train(args.seed, built["power"])
     lap("18")
-    phase_lm_mesh(args.seed, built["power"])
+    phase_lm_mesh(args.seed, built["power"], lm["bf16_gap"])
     lap("19")
     for name, k in kernels.items():
         k["launches"] = launches[name]

@@ -56,7 +56,8 @@ import traceback
 
 from repro_torch.launch.lm_mesh import (
     abstract_mesh, batch_specs_tree, cache_leaf_spec, cache_specs_tree,
-    dp_axes, make_production_mesh, param_specs, shard_count, spec_axes,
+    dp_axes, fsdp_axes, make_production_mesh, param_specs, shard_count,
+    spec_axes,
 )
 from repro_torch.launch.roofline import (
     HBM_CAPACITY_BYTES, edge_combine_work, lm_optimizer_bytes, lm_work,
@@ -370,17 +371,9 @@ def _activation_model_bytes(cfg, info, n_chips: int) -> int:
     return int(G * a + work + logits)
 
 
-def _fsdp(param_mode: str) -> tuple:
-    """The mesh axes a weight's spec shards it over for storage only (FSDP:
-    gathered before each use, the work not split): 'data' under the
-    ``train`` specs; none under ``serve``, whose 'data' axis splits the
-    expert banks' ff dimension (tensor parallel, as 'model' does)."""
-    return ("data",) if param_mode == "train" else ()
-
-
 def _tp_axes(spec, param_mode: str) -> set:
     """The mesh axes that split the product of a weight with ``spec``."""
-    return spec_axes(spec) - set(_fsdp(param_mode))
+    return spec_axes(spec) - set(fsdp_axes(param_mode))
 
 
 def _divisor(w, pspecs: dict, mesh, kind: str, param_mode: str,
@@ -429,9 +422,9 @@ def _collectives(cfg, info: dict, mesh, pspecs: dict, params: dict,
     HLO parser counts them (result-shape bytes; an all-reduce twice):
 
     * ``all-gather``: every leaf whose spec shards it over an FSDP axis
-      (``_fsdp``: 'data' under the ``train`` specs, none under ``serve``),
-      gathered once a pass (forward; with remat the recomputation;
-      backward): its bytes over its spec's other axes;
+      (``lm_mesh.fsdp_axes``: 'data' under the ``train`` specs, none
+      under ``serve``), gathered once a pass (forward; with remat the
+      recomputation; backward): its bytes over its spec's other axes;
     * ``reduce-scatter`` (train): those leaves' gradients, each GPU's
       shard (the leaf's bytes over all its spec's axes); on a mesh with a
       'pod' axis, ``all-reduce`` of that shard over the pods;
@@ -461,7 +454,7 @@ def _collectives(cfg, info: dict, mesh, pspecs: dict, params: dict,
     kind = info["kind"]
     passes = (train_passes(cfg) - 1) if kind == "train" else 1
     model = mesh.axis_size("model")
-    fsdp_axes = [a for a in _fsdp(param_mode) if mesh.axis_size(a) > 1]
+    fsdp_on = [a for a in fsdp_axes(param_mode) if mesh.axis_size(a) > 1]
     dp = mesh.axis_size(tuple(a for a in ("pod", "data")
                               if a in mesh.axis_names))
     isz = cfg.dtype.itemsize
@@ -469,10 +462,10 @@ def _collectives(cfg, info: dict, mesh, pspecs: dict, params: dict,
                         "all-to-all"), 0)
     for name, t in params.items():
         spec, nb = pspecs[name], _nbytes(t)
-        fsdp = bool(spec_axes(spec) & set(fsdp_axes))
+        fsdp = bool(spec_axes(spec) & set(fsdp_on))
         if fsdp:
             by["all-gather"] += passes * nb // shard_count(spec, mesh,
-                                                           fsdp_axes)
+                                                           fsdp_on)
         if kind != "train":
             continue
         shard = nb // shard_count(spec, mesh)
@@ -540,8 +533,9 @@ def run_cell(arch: str, shape: str, multi_pod: bool = False, cfg=None,
     ``_divisor``, a training step's passes ``train_passes`` times (the
     ``unembed`` three times); its HBM bytes the same products'
     activations, each weight read once a pass at the share a GPU holds
-    once its FSDP axes are gathered (``_fsdp``), and AdamW's bytes over
-    the GPU's shards (``train``) or the GPU's share of the caches once
+    once its FSDP axes are gathered (``lm_mesh.fsdp_axes``), and AdamW's
+    bytes over the GPU's shards (``train``) or the GPU's share of the
+    caches once
     (``prefill`` writes them, ``decode`` reads them: the only count of
     the K/V that decode attends)."""
     from repro_torch.configs import SHAPES, cell_supported, get_config
@@ -590,7 +584,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool = False, cfg=None,
                             param_mode)
     reads = train_passes(cfg) if kind == "train" else 1
     weights = reads * sum(_nbytes(t) // shard_count(pspecs[k], mesh,
-                                                    _fsdp(param_mode))
+                                                    fsdp_axes(param_mode))
                           for k, t in params.items())
     if kind == "train":
         state = lm_optimizer_bytes(cfg, {k: shard_count(s, mesh)

@@ -1,7 +1,7 @@
 """The production mesh and the LM sharding rules (FSDP × TP × EP × SP) of
 the JAX package's ``launch/mesh.py``, for the dry run; and the live grid
-that runs the reference's sharded train step with them. The port's
-``launch/mesh.py`` is the GraphD mesh launcher.
+that runs the reference's sharded train step and its serving with them.
+The port's ``launch/mesh.py`` is the GraphD mesh launcher.
 
 Mesh: one pod (data=16, model=16) = 256 GPUs; several pods add a leading
 pod axis (pod=2, data=16, model=16) = 512. The mesh is abstract: a shape
@@ -26,20 +26,28 @@ plus the per-layer spec given here (``transformer.tree_slots`` maps the
 names). Caches are named ``layers.{i}.{field}.{leaf}`` after the port's
 cache fields (``serving/cache.py::cache_leaves``).
 
-**The live grid.** The reference runs its train step over a device mesh
-with ``jax.jit(..., in_shardings=to_shardings(...))``; PyTorch needs one
-process a rank. :class:`ProcessGrid` is a rank's place in a (data, model)
-grid over ``torch.distributed`` (gloo, or NCCL with a GPU a rank): what it
-holds of each weight, moment and batch (media included) is the spec's
-shard (``shard_index``), and the model built on it
-(``models/transformer.py`` with ``grid=``) runs every layer kind FSDP over
-'data' and tensor-, expert- and vocab-parallel over 'model' (a leaf the
-spec leaves whole over 'model' runs whole there); its MoE layers keep the
-global batch's capacity. :func:`run_train_mesh` spawns the ranks
-(``python -m repro_torch.launch.lm_mesh rank <workdir> <r>``), each with
-its shards, and gathers their weights, moments and gradients back whole.
+**The live grid.** The reference runs its train step, and lowers its
+``prefill`` and ``decode_step`` (``launch/dryrun.py::lower_cell``), over a
+device mesh with ``jax.jit(..., in_shardings=to_shardings(...))``; PyTorch
+needs one process a rank. :class:`ProcessGrid` is a rank's place in a
+(data, model) grid over ``torch.distributed`` (gloo, or NCCL with a GPU a
+rank): what it holds of each weight, moment, batch (media included) and
+cache is the spec's shard (``shard_index``), and the model built on it
+(``models/transformer.py`` with ``grid=`` and a ``mode``) runs every layer
+kind tensor-, expert- and vocab-parallel over 'model' (a leaf the spec
+leaves whole over 'model' runs whole there) and, under the ``train``
+specs, FSDP over 'data'; its MoE layers keep the global batch's capacity.
+Under the ``serve`` specs the weights stay whole over 'data' but for the
+expert banks' ff, and the caches are split as ``cache_specs_tree`` splits
+them (``serving/cache.py``). :func:`run_train_mesh` and
+:func:`run_serve_mesh` spawn the ranks (``python -m
+repro_torch.launch.lm_mesh rank <workdir> <r>``), each with its shards; one
+spawn runs cases of either kind (:func:`run_lm_mesh_cases`). A train case
+gathers the weights, moments and gradients back whole; a serving case
+brings back every step's logits and tokens.
 
     res = run_train_mesh(cfg, params, None, batch, (2, 4), device="cpu")
+    out = run_serve_mesh(cfg, params, prompts, (2, 4), 32, device="cpu")
 """
 
 from __future__ import annotations
@@ -211,6 +219,16 @@ def leaf_spec(name: str, shape, mesh: AbstractMesh,
     return _clean(base, shape, mesh)
 
 
+def fsdp_axes(mode: str) -> tuple:
+    """The mesh axes a weight's spec splits it over for storage only (FSDP:
+    gathered before each use, the work not split): 'data' under the
+    ``train`` specs; none under ``serve``, whose 'data' axis splits the
+    expert banks' ff dimension (tensor parallel, as 'model' does)."""
+    if mode not in ("train", "serve"):
+        raise ValueError(f"mode {mode!r}: 'train' or 'serve'")
+    return ("data",) if mode == "train" else ()
+
+
 def param_specs(cfg, mesh: AbstractMesh, mode: str = "train") -> dict:
     """``{port weight name: spec}`` for a config's parameters (and for its
     optimizer state's ``mu``, ``nu`` and ``err``, which are sharded as the
@@ -221,8 +239,7 @@ def param_specs(cfg, mesh: AbstractMesh, mode: str = "train") -> dict:
     """
     from repro_torch.models.transformer import param_shapes
 
-    if mode not in ("train", "serve"):
-        raise ValueError(f"mode {mode!r}: 'train' or 'serve'")
+    fsdp_axes(mode)  # refuses another mode
     return {name: leaf_spec(name, shape, mesh, mode)
             for name, shape in param_shapes(cfg).items()}
 
@@ -359,7 +376,9 @@ class ProcessGrid:
       every rank holds the same bits and two runs the same;
     * ``reduce_scatter``: the same sum, a rank keeping its piece (an
       ``all_to_all`` of the pieces, then the ordered sum);
-    * ``all_max``: an ``all_reduce`` with MAX (exact in any order).
+    * ``all_max``: an ``all_reduce`` with MAX (exact in any order);
+    * ``stack``: the axis's copies stacked in rank order (serving's
+      partial softmax combines them itself).
 
     Under gloo, tensors on the card go to host buffers and back, as
     ``core/collectives.py::ProcessMesh`` stages them, counted in
@@ -408,9 +427,16 @@ class ProcessGrid:
     def index(self, axis: str) -> int:
         return self.rank if axis == "world" else self.coords[axis]
 
-    def param_specs(self, cfg) -> dict:
-        """``{weight name: spec}`` of a config on this grid (``train``)."""
-        return param_specs(cfg, self.mesh)
+    def param_specs(self, cfg, mode: str = "train") -> dict:
+        """``{weight name: spec}`` of a config on this grid, ``mode``
+        ``train`` or ``serve``."""
+        return param_specs(cfg, self.mesh, mode)
+
+    def cache_shard(self, name: str, shape) -> tuple:
+        """A cache leaf's spec (``cache_leaf_spec``) on this grid and the
+        slices of it this rank holds (``shard_index``)."""
+        spec = cache_leaf_spec(name, shape, self.mesh)
+        return spec, shard_index(spec, shape, self.mesh, self.rank)
 
     def shard_shape(self, spec, shape) -> tuple:
         """A leaf's shard: each dimension over the size of its axis."""
@@ -468,6 +494,11 @@ class ProcessGrid:
         self.bytes[axis] += send.numel() * send.element_size()
         return self._back(torch.stack(parts))
 
+    def stack(self, x, axis: str):
+        """The axis's copies of ``x`` stacked in rank order (``x[None]`` on
+        an axis of one rank)."""
+        return x[None] if self.size(axis) == 1 else self._gather(x, axis)
+
     def all_gather(self, x, axis: str, dim: int = 0):
         import torch
 
@@ -523,7 +554,8 @@ def _ordered_sum(stacked, dtype):
 
 
 # ---------------------------------------------------------------------------
-# the launcher: one process a rank, the reference's sharded train step
+# the launcher: one process a rank, the reference's sharded train step and
+# serving under its serve specs
 # ---------------------------------------------------------------------------
 
 #: the trees a case can bring back, gathered whole: the weights and the
@@ -534,7 +566,7 @@ TREES = ("params", "mu", "nu", "err", "grads")
 
 @dataclass
 class TrainCase:
-    """One run of :func:`run_train_mesh_cases`: ``steps`` steps of
+    """One run of :func:`run_lm_mesh_cases`: ``steps`` steps of
     ``training.train.make_train_step(cfg, opt_cfg, microbatches)`` on the
     global ``batch`` from ``params`` (the JAX package's tree of numpy
     arrays, ``{port name: array or tensor}``, or an int: the seed of
@@ -582,12 +614,57 @@ class TrainResult:
     metrics: list
     grads_metrics: dict | None
     ranks: list
-    startup: list | None = None  # run_train_mesh's: TrainMeshRun.startup
+    startup: list | None = None  # run_train_mesh's: LMMeshRun.startup
 
 
 @dataclass
-class TrainMeshRun:
-    results: list  # TrainResult a case
+class ServeCase:
+    """One serving run of :func:`run_lm_mesh_cases`, the reference's
+    ``prefill`` and ``decode_step`` under ``param_specs(mode="serve")`` and
+    ``cache_specs_tree``: a prefill over ``prompts`` (B, S) (and
+    ``media``), then ``steps - 1`` decode steps fed the tokens chosen on
+    the card (greedy), or ``feed`` (B, steps - 1) where given; caches of
+    ``cache_len`` positions (``S + steps`` by default; Whisper's decoder
+    448). ``params`` as ``TrainCase``'s. ``repeats`` > 1 runs it again on
+    fresh caches, each run held to the first's bits."""
+
+    cfg: object
+    params: object
+    prompts: object
+    steps: int
+    media: object = None
+    cache_len: int | None = None
+    feed: object = None
+    repeats: int = 1
+
+
+@dataclass
+class ServeResult:
+    """One serving case, gathered on the host: ``logits`` (B, steps,
+    vocab) float32, the prefill's first; ``tokens`` (B, steps) int32, each
+    step's argmax; ``dropped`` a call (the prefill, then each decode step)
+    of each MoE layer's dropped copies of the global batch; ``ranks`` a
+    dict a rank: ``resident_bytes`` (``params``, ``caches``, and the
+    inputs of a prefill, ``prefill_inputs``: its prompt and media rows, and
+    of a decode step, ``decode_inputs``: its token rows and the int32
+    position, as the reference passes them), ``bytes`` and
+    ``collective_seconds`` of the prefill and of the decode steps
+    (``GRID_BYTES``, ``GRID_SECONDS``), ``prefill_seconds``,
+    ``step_seconds``, ``peak_bytes`` (None on the CPU), ``load_s``,
+    ``shards`` (each weight's and cache leaf's shard shape), ``repeats``
+    (each later run's ``differ``: whether its logits or tokens differ from
+    the first's bits), ``save_s``."""
+
+    logits: object
+    tokens: object
+    dropped: list
+    ranks: list
+    startup: list | None = None  # run_serve_mesh's: LMMeshRun.startup
+
+
+@dataclass
+class LMMeshRun:
+    results: list  # a TrainResult or ServeResult a case
     #: per rank: spawn_to_main_s (interpreter and imports), import_s,
     #: rendezvous_s, spawn_to_first_s (to the first case's first step)
     startup: list
@@ -621,18 +698,28 @@ def _global_state(cfg, opt) -> dict | None:
             for k, v in opt.items()}
 
 
-def _write_shards(workdir: str, c: int, case: TrainCase, mesh) -> None:
-    """Each rank's file of the case: its shards of the weights, the state
-    and the batch, as its specs split them."""
+def _write_shards(workdir: str, c: int, case, mesh) -> None:
+    """Each rank's file of the case: its shards of the weights and, for a
+    train case, the state and the batch, for a serving case the prompt,
+    media and fed tokens, as its specs split them."""
     import torch
 
     from repro_torch import convert
 
-    specs = param_specs(case.cfg, mesh)
+    serve = isinstance(case, ServeCase)
+    specs = param_specs(case.cfg, mesh, "serve" if serve else "train")
     params = (None if isinstance(case.params, int)
               else convert.lm_named_tensors(case.cfg, case.params))
-    state = _global_state(case.cfg, case.opt)
-    batch = {k: torch.as_tensor(v).cpu() for k, v in case.batch.items()}
+    if serve:
+        batch = {"prompts": torch.as_tensor(case.prompts).to(torch.int32)}
+        if case.media is not None:
+            batch["media"] = torch.as_tensor(case.media).to(case.cfg.dtype)
+        if case.feed is not None:
+            batch["feed"] = torch.as_tensor(case.feed).to(torch.int32)
+        state = None
+    else:
+        batch = {k: torch.as_tensor(v).cpu() for k, v in case.batch.items()}
+        state = _global_state(case.cfg, case.opt)
     bspecs = batch_specs_tree(batch, mesh)
     for r in range(mesh.size):
         out = dict(batch=convert.shard_named(batch, bspecs, mesh, r))
@@ -650,11 +737,11 @@ def run_train_mesh(cfg, arrays, opt, batch, mesh_shape, steps: int = 1,
     """The reference's sharded train step (``param_specs`` / ``batch_specs_tree``,
     mode ``train``) on a ``(data, model)`` mesh of processes: one
     :class:`TrainCase` (``kw``: its other fields) on
-    :func:`run_train_mesh_cases` (``kw``: ``workdir``, ``timeout`` too).
+    :func:`run_lm_mesh_cases` (``kw``: ``workdir``, ``timeout`` too).
     Returns its :class:`TrainResult`, the run's start-up a rank as
     ``.startup``."""
     spawn = {k: kw.pop(k) for k in ("workdir", "timeout") if k in kw}
-    run = run_train_mesh_cases(
+    run = run_lm_mesh_cases(
         [TrainCase(cfg, arrays, batch, opt, steps=steps, **kw)], mesh_shape,
         device=device, backend=backend, gpus=gpus, **spawn)
     res = run.results[0]
@@ -662,20 +749,85 @@ def run_train_mesh(cfg, arrays, opt, batch, mesh_shape, steps: int = 1,
     return res
 
 
-def run_train_mesh_cases(cases, mesh_shape, *, device=None,
-                         backend: str | None = None, gpus=None,
-                         workdir: str | None = None,
-                         timeout: float = 600.0) -> TrainMeshRun:
-    """Run each :class:`TrainCase` in turn on one mesh of ``data × model``
-    processes (one spawn). ``device="cpu"`` means gloo on the CPU; else the
-    ranks run on CUDA (the default, which raises without it) over NCCL, one
-    GPU a rank (fewer GPUs than ranks raises: it never drops to gloo), or
-    over ``backend="gloo"`` with the ranks sharing ``gpus`` (default the
-    visible ones; rank r takes ``gpus[r % len(gpus)]``) through host
-    buffers. Rank r is ``(r // model, r % model)``. ``workdir`` (default a
-    temporary directory, removed after) holds the shards, each rank's log
-    ``rank-r.log`` and its outputs. A rank that fails, or a run past
-    ``timeout`` seconds (also each collective's deadline), fails the run
+def run_serve_mesh(cfg, arrays, prompts, mesh_shape, steps: int, media=None,
+                   device=None, backend: str | None = None, gpus=None,
+                   **kw):
+    """The reference's ``prefill`` and ``decode_step`` under its ``serve``
+    specs (``param_specs(mode="serve")``, ``cache_specs_tree``) on a
+    ``(data, model)`` mesh of processes: greedy serving of ``prompts``
+    (B, S) for ``steps`` tokens, one :class:`ServeCase` (``kw``: its other
+    fields) on :func:`run_lm_mesh_cases` (``kw``: ``workdir``, ``timeout``
+    too). Returns its :class:`ServeResult`, the run's start-up a rank as
+    ``.startup``."""
+    spawn = {k: kw.pop(k) for k in ("workdir", "timeout") if k in kw}
+    run = run_lm_mesh_cases(
+        [ServeCase(cfg, arrays, prompts, steps, media, **kw)], mesh_shape,
+        device=device, backend=backend, gpus=gpus, **spawn)
+    res = run.results[0]
+    res.startup = run.startup
+    return res
+
+
+def _check_case(case, mesh) -> None:
+    """Refuse what a case cannot run: trees it cannot keep, a serving
+    batch that 'data' does not divide (each data rank serves its rows), a
+    decode with no step or past its caches."""
+    if isinstance(case, TrainCase):
+        bad = set(case.keep) - set(TREES)
+        if bad:
+            raise ValueError(f"keep {sorted(bad)}: not among {TREES}")
+        return
+    B, S = case.prompts.shape
+    D = mesh.axis_size("data")
+    if B % D:
+        raise ValueError(f"{case.cfg.name}: a batch of {B} requests does not "
+                         f"divide over 'data' of {D}")
+    if case.steps < 1:
+        raise ValueError(f"{case.cfg.name}: {case.steps} steps: at least 1")
+    if case.feed is not None and tuple(case.feed.shape) != (B,
+                                                            case.steps - 1):
+        raise ValueError(f"feed {tuple(case.feed.shape)}: (B, steps - 1) = "
+                         f"{(B, case.steps - 1)}")
+    if case.cfg.n_enc_layers == 0 and S + case.steps - 1 > _cache_len(case):
+        raise ValueError(f"{case.cfg.name}: {S} + {case.steps - 1} positions "
+                         f"pass a cache of {_cache_len(case)}")
+
+
+def _cache_len(case) -> int:
+    if case.cache_len is not None:
+        return case.cache_len
+    return case.prompts.shape[1] + case.steps
+
+
+def _serve_result(reports: list, outs: list, mesh) -> ServeResult:
+    """A serving case's rows from each data rank's first 'model' rank."""
+    import torch
+
+    lead = [d * mesh.shape[1] for d in range(mesh.shape[0])]
+    return ServeResult(
+        logits=torch.cat([outs[r]["logits"] for r in lead]),
+        tokens=torch.cat([outs[r]["tokens"] for r in lead]),
+        dropped=reports[0]["dropped"],
+        ranks=[{k: v for k, v in rep.items() if k != "dropped"}
+               for rep in reports])
+
+
+def run_lm_mesh_cases(cases, mesh_shape, *, device=None,
+                      backend: str | None = None, gpus=None,
+                      workdir: str | None = None,
+                      timeout: float = 600.0) -> LMMeshRun:
+    """Run each case, a :class:`TrainCase` or a :class:`ServeCase`, in
+    turn on one mesh of ``data × model`` processes (one spawn): a
+    :class:`TrainResult` or :class:`ServeResult` a case. ``device="cpu"``
+    means gloo on the CPU; else the ranks run on CUDA (the default, which
+    raises without it) over NCCL, one GPU a rank (fewer GPUs than ranks
+    raises: it never drops to gloo), or over ``backend="gloo"`` with the
+    ranks sharing ``gpus`` (default the visible ones; rank r takes
+    ``gpus[r % len(gpus)]``) through host buffers. Rank r is ``(r //
+    model, r % model)``. ``workdir`` (default a temporary directory,
+    removed after) holds the shards, each rank's log ``rank-r.log`` and
+    its outputs. A rank that fails, or a run past ``timeout`` seconds
+    (also each collective's deadline), fails the run
     (``launch.mesh.MeshFailed``) with the rank's log tail."""
     import torch
 
@@ -708,9 +860,7 @@ def run_train_mesh_cases(cases, mesh_shape, *, device=None,
                              f"{len(ids)} GPUs {ids}")
         devices = [ids[r % len(ids)] for r in range(n)]
     for case in cases:
-        bad = set(case.keep) - set(TREES)
-        if bad:
-            raise ValueError(f"keep {sorted(bad)}: not among {TREES}")
+        _check_case(case, mesh)
     own = workdir is None
     workdir = tempfile.mkdtemp(prefix="repro-lm-mesh-") if own else workdir
     os.makedirs(workdir, exist_ok=True)
@@ -719,9 +869,14 @@ def run_train_mesh_cases(cases, mesh_shape, *, device=None,
         meta = []
         for c, case in enumerate(cases):
             _write_shards(workdir, c, case, mesh)
-            meta.append(dataclasses.replace(
-                case, params=case.params if isinstance(case.params, int)
-                else None, opt=None, batch={}))
+            seed = case.params if isinstance(case.params, int) else None
+            if isinstance(case, ServeCase):
+                meta.append(dataclasses.replace(
+                    case, params=seed, cache_len=_cache_len(case),
+                    prompts=None, media=None, feed=None))
+            else:
+                meta.append(dataclasses.replace(case, params=seed, opt=None,
+                                                batch={}))
         shards_s = time.perf_counter() - t0
         with open(os.path.join(workdir, "cases.pkl"), "wb") as fh:
             pickle.dump(meta, fh)
@@ -736,12 +891,15 @@ def run_train_mesh_cases(cases, mesh_shape, *, device=None,
         t0 = time.perf_counter()
         results = []
         for c, case in enumerate(cases):
-            specs = param_specs(case.cfg, mesh)
             reports = [_read_json(_case_out(workdir, c, r, "json"))
                        for r in range(n)]
             # mapped, not read: the join copies each shard once
             outs = [torch.load(_case_out(workdir, c, r, "pt"), mmap=True,
                                weights_only=True) for r in range(n)]
+            if isinstance(case, ServeCase):
+                results.append(_serve_result(reports, outs, mesh))
+                continue
+            specs = param_specs(case.cfg, mesh)
             trees = {t: (convert.gather_named([o[t] for o in outs], specs,
                                               mesh)
                          if t in outs[0] else None) for t in TREES}
@@ -752,7 +910,7 @@ def run_train_mesh_cases(cases, mesh_shape, *, device=None,
                 ranks=[{k: v for k, v in rep.items()
                         if k not in ("metrics", "grads_metrics")}
                        for rep in reports]))
-        return TrainMeshRun(
+        return LMMeshRun(
             results=results,
             startup=[_read_json(os.path.join(workdir, f"startup-{r}.json"))
                      for r in range(n)],
@@ -876,6 +1034,99 @@ def _rank_case(grid, case: TrainCase, path: str, device) -> tuple:
     return out, report
 
 
+def _rank_serve(grid, case: ServeCase, path: str, device) -> tuple:
+    """Run one serving case on this rank: ``(outputs, report)``; the
+    outputs' logits and tokens on the first 'model' rank of each data
+    rank (the others hold the same bits)."""
+    import torch
+
+    from repro_torch.models.transformer import Transformer, init_weights
+    from repro_torch.serving.cache import (
+        cache_bytes, cache_leaves, make_caches,
+    )
+    from repro_torch.serving.engine import decode_step, prefill
+
+    cfg, cuda = case.cfg, device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    specs = grid.param_specs(cfg, "serve")
+
+    def shard(name, t):
+        return t[shard_index(specs[name], t.shape, grid.mesh,
+                             grid.rank)].clone()
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    z = torch.load(path, map_location=device, weights_only=True)
+    if isinstance(case.params, int):
+        z["params"] = init_weights(cfg, case.params, device, shard)
+    model = Transformer(cfg, z["params"], grid=grid, mode="serve")
+    load_s = time.perf_counter() - t0
+    batch = z["batch"]
+    prompt, media, feed = (batch["prompts"], batch.get("media"),
+                           batch.get("feed"))
+    B = prompt.shape[0] * grid.size("data")  # _check_case: it divides
+    n_media = None if media is None else media.shape[1]
+
+    def run():
+        caches = make_caches(cfg, B, case.cache_len, n_media, device,
+                             grid=grid)
+        grid.reset()
+        sync()
+        t0 = time.perf_counter()
+        logits = [prefill(model, prompt, caches, media)]
+        drops = [model.moe_dropped()]
+        sync()
+        pre = dict(seconds=time.perf_counter() - t0, bytes=dict(grid.bytes),
+                   collective_seconds=dict(grid.seconds))
+        grid.reset()
+        toks = [logits[0].argmax(-1, keepdim=True).to(torch.int32)]
+        seconds = []
+        for i in range(case.steps - 1):
+            tok = toks[-1] if feed is None else feed[:, i:i + 1]
+            sync()
+            t0 = time.perf_counter()
+            logits.append(decode_step(model, caches, tok,
+                                      prompt.shape[1] + i))
+            drops.append(model.moe_dropped())
+            sync()
+            seconds.append(time.perf_counter() - t0)
+            toks.append(logits[-1].argmax(-1, keepdim=True).to(torch.int32))
+        dec = dict(seconds=seconds, bytes=dict(grid.bytes),
+                   collective_seconds=dict(grid.seconds))
+        return (torch.stack(logits, 1), torch.cat(toks, 1), drops, caches,
+                pre, dec)
+
+    logits, tokens, drops, caches, pre, dec = run()
+    inputs = [prompt] + ([] if media is None else [media])
+    report = dict(
+        resident_bytes=dict(
+            params=sum(p.numel() * p.element_size()
+                       for p in model.parameters()),
+            caches=cache_bytes(caches),
+            prefill_inputs=sum(t.numel() * t.element_size() for t in inputs),
+            decode_inputs=prompt.shape[0] * 4 + 4),
+        shards={**{k: list(p.shape) for k, p in model.named_parameters()},
+                **{k: list(t.shape) for k, t in cache_leaves(caches)}},
+        load_s=load_s, dropped=drops, prefill_seconds=pre["seconds"],
+        step_seconds=dec["seconds"],
+        bytes=dict(prefill=pre["bytes"], decode=dec["bytes"]),
+        collective_seconds=dict(prefill=pre["collective_seconds"],
+                                decode=dec["collective_seconds"]),
+        peak_bytes=torch.cuda.max_memory_allocated() if cuda else None,
+        repeats=[])
+    del caches
+    for _ in range(case.repeats - 1):
+        again = run()
+        report["repeats"].append(dict(differ=not (
+            torch.equal(again[0], logits) and torch.equal(again[1], tokens))))
+        del again
+    out = {}
+    if grid.index("model") == 0:
+        out = dict(logits=logits.cpu(), tokens=tokens.cpu())
+    return out, report
+
+
 def rank_main(workdir: str, rank: int, spawned: float) -> int:
     # analysis: allow[liveness-clock] a start-up report, no deadline
     spawn_to_main_s = time.time() - spawned
@@ -918,11 +1169,18 @@ def rank_main(workdir: str, rank: int, spawned: float) -> int:
             if first is None:
                 # analysis: allow[liveness-clock] a start-up report
                 first = time.time()
-            out, report = _rank_case(grid, case, _case_in(workdir, c, rank),
-                                     device)
-            print(f"rank {rank} case {c}: {case.cfg.name} losses "
-                  f"{[m['loss'] for m in report['metrics']]} "
-                  f"{report['step_seconds']} s", flush=True)
+            if isinstance(case, ServeCase):
+                out, report = _rank_serve(grid, case,
+                                          _case_in(workdir, c, rank), device)
+                print(f"rank {rank} case {c}: {case.cfg.name} served, "
+                      f"prefill {report['prefill_seconds']:.3f} s, steps "
+                      f"{report['step_seconds']} s", flush=True)
+            else:
+                out, report = _rank_case(grid, case,
+                                         _case_in(workdir, c, rank), device)
+                print(f"rank {rank} case {c}: {case.cfg.name} losses "
+                      f"{[m['loss'] for m in report['metrics']]} "
+                      f"{report['step_seconds']} s", flush=True)
             t0 = time.perf_counter()
             torch.save(out, _case_out(workdir, c, rank, "pt"))
             report["save_s"] = time.perf_counter() - t0
@@ -945,7 +1203,7 @@ def rank_main(workdir: str, rank: int, spawned: float) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="repro_torch.launch.lm_mesh")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    rk = sub.add_parser("rank", help="run one rank of an LM training mesh")
+    rk = sub.add_parser("rank", help="run one rank of an LM mesh")
     rk.add_argument("workdir")
     rk.add_argument("rank", type=int)
     rk.add_argument("--spawned", type=float, required=True,
@@ -955,4 +1213,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    # the module by its name, so the cases it unpickles are its classes
+    from repro_torch.launch.lm_mesh import main as _main
+
+    sys.exit(_main())

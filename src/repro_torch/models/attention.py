@@ -18,6 +18,22 @@ global ones. Three modes a call, as in the reference:
 Cross-attention (``cross_kv=(k, v)``) applies RoPE to the queries only and
 attends to every media key; ``cross_kv_project`` makes those keys once.
 
+**On a live grid** (``launch/lm_mesh.py::ProcessGrid``) the layer's weights
+are a rank's 'model' shard: its query heads and their KV heads. Training
+runs those heads. Serving keeps the caches as the reference's
+``cache_specs_tree`` splits them: each cache (GQA, MLA, cross) holds the
+batch rows of its data rank and, where 'model' divides its length, the
+contiguous block ``seq = (lo, hi)`` of its slots or frames, every KV head
+of them; the ``pos`` table stays whole. A prefill writes each rank's slots
+of ``p % Lc`` (the KV heads gathered over 'model'); a decode step writes
+the new entry on the rank that owns its slot, then every rank attends all
+H heads (the queries gathered over 'model') over its own slots, and the
+partials, each with its float32 running max and sum, are combined over
+'model' in rank order (``_combine``): the sequence-parallel decode that
+the dry run prices. MLA gathers its latent cache over 'model' a step and
+runs its heads over all of it. A cache that 'model' does not divide is
+whole on every rank, which attends its own heads over it.
+
 The arithmetic is the reference's jnp: logits and softmax in float32, masked
 logits -1e30, the probabilities cast to the values' dtype before the PV
 product. It is not ``F.scaled_dot_product_attention``, whose bf16 flash path
@@ -51,6 +67,8 @@ class KVCache:
     k: torch.Tensor  # (B, Lc, Hkv, hd)
     v: torch.Tensor  # (B, Lc, Hkv, hd)
     pos: torch.Tensor  # (Lc,) int32 absolute position of each slot, -1 empty
+    #: on a grid, the slots [lo, hi) that k/v hold; None: all of them
+    seq: tuple[int, int] | None = None
 
     def tensors(self) -> tuple[torch.Tensor, ...]:
         return self.k, self.v, self.pos
@@ -61,6 +79,7 @@ class MLACache:
     c_kv: torch.Tensor  # (B, Lc, kv_lora) the latent
     k_rope: torch.Tensor  # (B, Lc, rope_dim) the rope key all heads share
     pos: torch.Tensor  # (Lc,) int32 absolute position of each slot, -1 empty
+    seq: tuple[int, int] | None = None  # as KVCache's
 
     def tensors(self) -> tuple[torch.Tensor, ...]:
         return self.c_kv, self.k_rope, self.pos
@@ -73,6 +92,7 @@ class CrossKV:
     k: torch.Tensor
     v: torch.Tensor
     filled: bool = False
+    seq: tuple[int, int] | None = None  # on a grid, the frames k/v hold
 
     def tensors(self) -> tuple[torch.Tensor, ...]:
         return self.k, self.v
@@ -140,23 +160,108 @@ def _cache_mask(positions, cache_pos, window):
 def _fill_cache(cache, positions, **entries) -> None:
     """Prefill from position 0: the last ``min(S, Lc)`` of each entry
     (B, S, ...), position ``p`` at slot ``p % Lc`` (the reference writes
-    them at slots 0.., see the module's docstring)."""
+    them at slots 0.., see the module's docstring); a shard (``cache.seq``)
+    keeps those of its slots."""
     Lc = cache.pos.shape[0]
     S = positions.shape[1]
     take = min(S, Lc)
     pos = positions[0, S - take:]
     slots = pos.remainder(Lc).long()
-    for name, e in entries.items():
-        getattr(cache, name)[:, slots] = e[:, S - take:]
     cache.pos[slots] = pos.to(torch.int32)
+    src = torch.arange(S - take, S, device=pos.device)
+    if cache.seq is not None:
+        lo, hi = cache.seq
+        own = (slots >= lo) & (slots < hi)
+        slots, src = slots[own] - lo, src[own]
+    for name, e in entries.items():
+        getattr(cache, name)[:, slots] = e[:, src]
 
 
 def _ring_write(cache, pos: int, **entries) -> None:
-    """Decode: write one entry (B, 1, ...) at slot ``pos % Lc``."""
+    """Decode: write one entry (B, 1, ...) at slot ``pos % Lc``, on the
+    shard that holds it."""
     slot = pos % cache.pos.shape[0]
-    for name, e in entries.items():
-        getattr(cache, name)[:, slot] = e[:, 0]
     cache.pos[slot] = pos
+    lo, hi = cache.seq or (0, cache.pos.shape[0])
+    if lo <= slot < hi:
+        for name, e in entries.items():
+            getattr(cache, name)[:, slot - lo] = e[:, 0]
+
+
+def _local(k, v, kv_index):
+    """The KV heads the local query heads read: ``kv_index``'s where the
+    layer computes every KV head, else all of ``k``/``v``."""
+    if kv_index is None:
+        return k, v
+    return k[:, :, kv_index], v[:, :, kv_index]
+
+
+def all_kv_heads(k, grid, kv_index):
+    """Every KV head of ``k`` (B, S, Hkv_local, hd) for a cache: gathered
+    over 'model' where the rank computes its share of them, as it is
+    where it computes all (``kv_index``) or runs alone."""
+    if grid is None or grid.size("model") == 1 or kv_index is not None:
+        return k
+    return grid.all_gather(k, "model", 2)
+
+
+def _partial(q, k, v, mask):
+    """``_attend`` over some of the keys: the output (B,S,H,hd) in v's
+    dtype, normalised over them, and their float32 max and sum of
+    exponentials a (B, S, H)."""
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    rep = H // Hkv
+    qg = q.reshape(B, S, Hkv, rep, hd).float().permute(0, 2, 3, 1, 4)
+    kt = k.float().permute(0, 2, 3, 1)[:, :, None]
+    logits = (qg @ kt) / math.sqrt(hd)
+    if mask is not None:
+        logits = torch.where(mask[:, None, None], logits, MASKED)
+    mx = logits.amax(-1, keepdim=True)
+    e = torch.exp(logits - mx)
+    s = e.sum(-1, keepdim=True)
+    vg = v.permute(0, 2, 1, 3)[:, :, None]
+    out = (e / s).to(v.dtype) @ vg  # (B,Hkv,rep,S,hd)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
+    stat = lambda t: t[..., 0].permute(0, 3, 1, 2).reshape(B, S, H)
+    return out, stat(mx), stat(s)
+
+
+def _combine(out, mx, s, grid):
+    """The partials of ``_partial`` over 'model' joined into the softmax
+    over every key: each rank's output weighted by its sum at the common
+    max, added in rank order in float32, over the total, rounded once to
+    the output's dtype. A rank whose keys are all masked weighs 0."""
+    outs = grid.stack(out, "model")
+    stats = grid.stack(torch.stack([mx, s]), "model")  # (m, 2, B, S, H)
+    top = stats[:, 0].amax(0)
+    w = stats[:, 1] * torch.exp(stats[:, 0] - top)
+    total, acc = w[0], w[0][..., None] * outs[0].float()
+    for r in range(1, outs.shape[0]):
+        total = total + w[r]
+        acc = acc + w[r][..., None] * outs[r].float()
+    return (acc / total[..., None]).to(out.dtype)
+
+
+def _cached(q, k, v, mask, seq, grid, kv_index):
+    """Decode against cached keys and values (B, T, Hkv, hd), every KV
+    head: in one process ``_attend``; on a grid this rank's heads over the
+    whole cache where it holds all of it (``seq`` None), else the
+    sequence-parallel partials over its slots, combined over 'model', of
+    which it keeps its heads."""
+    if grid is None or grid.size("model") == 1:
+        return _attend(q, k, v, mask)
+    Hl = q.shape[2]
+    h0 = grid.index("model") * Hl
+    if seq is None:
+        if kv_index is None:
+            rep = Hl * grid.size("model") // k.shape[2]
+            k, v = (t[:, :, h0 // rep:(h0 + Hl) // rep] for t in (k, v))
+        else:
+            k, v = _local(k, v, kv_index)
+        return _attend(q, k, v, mask)
+    out, mx, s = _partial(grid.all_gather(q, "model", 2), k, v, mask)
+    return _combine(out, mx, s, grid)[:, :, h0:h0 + Hl]
 
 
 def gqa_attention(p: dict, x, positions, *, n_heads: int, n_kv_heads: int,
@@ -169,40 +274,44 @@ def gqa_attention(p: dict, x, positions, *, n_heads: int, n_kv_heads: int,
     S == 1) takes its position also as the Python int ``pos``, the slot it
     writes: a slot read back from the card would wait for it. With
     ``cross_kv=(k, v)``, (B, T, Hkv, hd) media or encoder keys, the queries
-    attend to all T of them and ``cache`` is not used; ``causal=False`` is
-    the encoder's bidirectional self-attention.
+    attend to all T of them and ``cache`` is not used; a ``CrossKV`` that a
+    prefill filled is read as a decode step reads a cache;
+    ``causal=False`` is the encoder's bidirectional self-attention.
 
-    On a live ``grid`` (training forward only) ``p`` holds this rank's
-    'model' shard: ``n_heads`` query heads (``wq``'s columns, ``wo``'s
-    rows) and ``n_kv_heads`` KV heads, which a contiguous split keeps in
-    their groups; ``wo`` is row-parallel. Where the spec splits ``wk``/
-    ``wv`` below a head, the caller gathers them whole and ``kv_index``
-    picks each local query head's KV head (h // rep), of ``cross_kv`` too
-    (which the caller projects with the same weights)."""
+    On a live ``grid`` ``p`` holds this rank's 'model' shard: ``n_heads``
+    query heads (``wq``'s columns, ``wo``'s rows) and ``n_kv_heads`` KV
+    heads, which a contiguous split keeps in their groups; ``wo`` is
+    row-parallel. Where the spec splits ``wk``/``wv`` below a head, the
+    caller gathers them whole and ``kv_index`` picks each local query
+    head's KV head (h // rep), of ``cross_kv`` too (which the caller
+    projects with the same weights). Caches are the module docstring's."""
     B, S, d = x.shape
     if grid is not None:
         x = copy_to(x, grid, "model")
     q = (x @ p["wq"]).reshape(B, S, n_heads, head_dim)
     q = apply_rope(q, positions, rope_theta)
-    if cross_kv is not None:
-        k, v = cross_kv
-        if kv_index is not None:
-            k, v = k[:, :, kv_index], v[:, :, kv_index]
-        out = _attend(q, k, v, None)
+    if isinstance(cross_kv, CrossKV):  # decode: the keys a prefill cached
+        out = _cached(q, cross_kv.k, cross_kv.v, None, cross_kv.seq, grid,
+                      kv_index)
+    elif cross_kv is not None:
+        out = _attend(q, *_local(*cross_kv, kv_index), None)
     else:
         k = (x @ p["wk"]).reshape(B, S, n_kv_heads, head_dim)
         v = (x @ p["wv"]).reshape(B, S, n_kv_heads, head_dim)
-        if kv_index is not None:
-            k, v = k[:, :, kv_index], v[:, :, kv_index]
         k = apply_rope(k, positions, rope_theta)
+        if cache is not None:
+            kw, vw = (all_kv_heads(t, grid, kv_index) for t in (k, v))
         if cache is None or S > 1:
-            out = _attend(q, k, v, _train_mask(positions, window, causal))
+            out = _attend(q, *_local(k, v, kv_index),
+                          _train_mask(positions, window, causal))
             if cache is not None:  # prefill
-                _fill_cache(cache, positions, k=k, v=v)
+                _fill_cache(cache, positions, k=kw, v=vw)
         else:  # decode
-            _ring_write(cache, pos, k=k, v=v)
-            out = _attend(q, cache.k, cache.v,
-                          _cache_mask(positions, cache.pos, window))
+            _ring_write(cache, pos, k=kw, v=vw)
+            lo, hi = cache.seq or (0, cache.pos.shape[0])
+            out = _cached(q, cache.k, cache.v,
+                          _cache_mask(positions, cache.pos[lo:hi], window),
+                          cache.seq, grid, kv_index)
     out = out.reshape(B, S, n_heads * head_dim)
     y = out @ p["wo"] if grid is None else row_parallel(out, p["wo"], grid)
     return y.to(x.dtype)
@@ -247,12 +356,13 @@ def mla_attention(p: dict, x, positions, *, n_heads: int, head_dim: int,
     (d, r), ``w_krope`` (d, rd), ``w_ukv`` (r, H·2hd) and ``wo`` (H·hd, d);
     the modes and ``pos`` as ``gqa_attention``'s, always causal.
 
-    On a live ``grid`` (training forward only) ``wq`` and ``w_ukv`` hold
-    this rank's ``n_heads`` heads (their columns are head-major) and
-    ``wo`` their rows, row-parallel; ``w_dkv`` and ``w_krope`` are whole,
-    so every rank computes the whole latent and rope key (the caller
-    passes them through ``copy_to``: each rank's heads give a part of
-    their gradients)."""
+    On a live ``grid`` ``wq`` and ``w_ukv`` hold this rank's ``n_heads``
+    heads (their columns are head-major) and ``wo`` their rows,
+    row-parallel; ``w_dkv`` and ``w_krope`` are whole, so every rank
+    computes the whole latent and rope key (the caller passes them through
+    ``copy_to``: each rank's heads give a part of their gradients). A
+    cache split by slots over 'model' (``cache.seq``) is gathered whole for
+    each decode step, and the rank's heads attend over all of it."""
     B, S, d = x.shape
     H, hd, rd = n_heads, head_dim, rope_dim
     if grid is not None:
@@ -270,7 +380,10 @@ def mla_attention(p: dict, x, positions, *, n_heads: int, head_dim: int,
             _fill_cache(cache, positions, c_kv=c_kv, k_rope=k_rope)
     else:  # decode against the latent cache
         _ring_write(cache, pos, c_kv=c_kv, k_rope=k_rope)
-        out = _mla_attend(q_nope, q_rope, cache.c_kv, cache.k_rope,
+        lat, kr = cache.c_kv, cache.k_rope
+        if cache.seq is not None:
+            lat, kr = (grid.all_gather(t, "model", 1) for t in (lat, kr))
+        out = _mla_attend(q_nope, q_rope, lat, kr,
                           _cache_mask(positions, cache.pos, None), p, H, hd,
                           x.dtype)
     out = out.reshape(B, S, H * hd)

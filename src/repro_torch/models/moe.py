@@ -16,7 +16,8 @@ card add in no fixed order; so two runs on the card give the same bits.
 On a live grid (``moe_ffn(..., grid=)``) the function is the global
 batch's, as the reference's sharded step computes it: the capacity and each
 copy's slot count every data rank's tokens, the experts run over 'model'
-(EP) and the combine runs the same way on every rank.
+(EP) and the combine runs the same way on every rank. Under the ``serve``
+specs each expert's ff is split over 'data' too (``ff_grid``).
 """
 
 from __future__ import annotations
@@ -52,9 +53,49 @@ def _combine(yflat, slot, keep, flat_g, T: int, topk: int, dtype):
     return y
 
 
+def _serve_experts(p: dict, xt, probs_fn, *, n_experts: int, topk: int,
+                   capacity_factor: float, grid):
+    """``moe_ffn``'s routed experts where the banks split each expert's ff
+    over 'data' (``ff_grid``): every data rank's rows gathered, routed as
+    one process routes the global batch (its capacity, its slots), this
+    rank's experts run on every kept copy over its ff slice, the partials
+    summed over 'data' in float32 in rank order, joined over 'model';
+    returns this data rank's rows of the combine, the global batch's
+    ``(probs, eidx, dropped, load)``."""
+    T, d = xt.shape
+    E = n_experts
+    xg = grid.all_gather(xt, "data", 0)  # every data rank's rows, in order
+    Tg = xg.shape[0]
+    probs, gate, eidx = probs_fn(xg)
+    C = int(capacity_factor * topk * Tg / E) + 1
+    flat_e = eidx.reshape(-1)
+    flat_t = torch.arange(Tg, device=xt.device).repeat_interleave(topk)
+    onehot = torch.nn.functional.one_hot(flat_e, E).to(torch.int32)
+    pos = (onehot.cumsum(0) * onehot).sum(-1) - 1
+    keep = pos < C
+    El = p["w_gate"].shape[0]
+    e0 = grid.index("model") * El if El < E else 0
+    mine = keep & (flat_e >= e0) & (flat_e < e0 + El)
+    slot = torch.where(mine, (flat_e - e0) * C + pos, El * C)
+    buf = torch.zeros((El * C + 1, d), dtype=xt.dtype, device=xt.device)
+    buf[slot] = xg[flat_t]
+    xe = buf[:El * C].reshape(El, C, d)
+    h = silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
+    ye = grid.all_sum(torch.bmm(h.float(), p["w_down"].float()),
+                      "data").to(xt.dtype)
+    if El < E:
+        ye = grid.all_gather(ye, "model", 0)  # (E, C, d)
+    own = slice(grid.index("data") * T * topk, (grid.index("data") + 1)
+                * T * topk)  # this data rank's copies
+    slot = torch.where(keep, flat_e * C + pos, E * C)[own]
+    y = _combine(ye.reshape(E * C, d), slot, keep[own],
+                 gate.reshape(-1)[own], T, topk, xt.dtype)
+    return y, (probs, eidx, 1.0 - keep.float().mean(), onehot.sum(0))
+
+
 def moe_ffn(p: dict, x, *, n_experts: int, topk: int,
             capacity_factor: float = 1.25, n_shared: int = 0, grid=None,
-            shared_grid=None):
+            shared_grid=None, ff_grid=None):
     """x: (B, S, d) -> (y, (aux, dropped), load): the Switch load-balance
     loss and the fraction of copies dropped, float32 scalars on x's
     device, and the (E,) copies bound for each expert before the capacity
@@ -63,7 +104,7 @@ def moe_ffn(p: dict, x, *, n_experts: int, topk: int,
     with shared experts, ``ws_gate``/``ws_up`` (d, fs) and ``ws_down``
     (fs, d).
 
-    On a live ``grid`` (training forward only) ``x`` holds this data rank's
+    On a live ``grid`` ``x`` holds this data rank's
     rows, the same on every 'model' rank, and the function is the global
     batch's, drops included:
 
@@ -83,11 +124,28 @@ def moe_ffn(p: dict, x, *, n_experts: int, topk: int,
       added in copy order.
     * **Shared experts** tensor-parallel over ``shared_grid`` (the grid
       where the spec splits them over 'model'), else whole.
+    * **The ff over 'data'** (``ff_grid``, the ``serve`` specs): every rank
+      runs its experts' ff slice on the global batch's kept copies
+      (``_serve_experts``), and the losses are the global batch's.
     """
     B, S, d = x.shape
     T, E = B * S, n_experts
+
+    def probs_fn(rows):
+        return route(rows.float() @ p["router"].float(), topk)
+
     xt = x.reshape(T, d)
-    probs, gate, eidx = route(xt.float() @ p["router"].float(), topk)
+    if ff_grid is not None:
+        y, (probs, eidx, dropped, load) = _serve_experts(
+            p, xt, probs_fn, n_experts=E, topk=topk,
+            capacity_factor=capacity_factor, grid=ff_grid)
+        if n_shared:
+            y = y + swiglu_ffn(xt, p["ws_gate"], p["ws_up"], p["ws_down"],
+                               silu, shared_grid)
+        me = torch.nn.functional.one_hot(eidx, E).float().mean(dim=(0, 1))
+        aux = E * (me * probs.mean(dim=0)).sum()
+        return y.reshape(B, S, d), (aux, dropped), load
+    probs, gate, eidx = probs_fn(xt)
     Tg = T if grid is None else T * grid.size("data")  # equal rows a rank
 
     # --- dispatch: group token copies by destination expert ---------------

@@ -23,6 +23,11 @@ from repro_torch.models.sharding import copy_to
 
 @dataclass
 class SSMCache:
+    """On a grid (serving) the state holds the rank's heads and ``conv``
+    the rank's block of the conv's channels where 'model' divides them
+    (the reference's ``cache_specs_tree``), a block that need not line up
+    with its heads' channels: ``mamba_block``'s serving path runs the conv
+    on those channels."""
     state: torch.Tensor  # (B, H, hd, N) float32
     conv: torch.Tensor  # (B, K-1, d_inner + 2N) the conv's last inputs
 
@@ -148,50 +153,96 @@ def _own_heads(p: dict, cfg, grid):
     return w_in, conv_w, conv_b, Hl * hd, Hl
 
 
+def _conv(pads, w, b, S: int, K: int):
+    """The depthwise causal conv over ``pads`` (B, S + K - 1, C), an
+    explicit window sum (K small), then ``silu``."""
+    conv = pads[:, 0:S] * w[0]
+    for i in range(1, K):
+        conv = conv + pads[:, i:i + S] * w[i]
+    return silu(conv + b)
+
+
+def _serve_columns(p: dict, x, cfg, cache: SSMCache | None, grid):
+    """A serving rank's part of the block before the scan, on the shards
+    the ``serve`` specs give it: ``in_proj``'s columns (the products
+    gathered over 'model' where the spec splits them) and the conv's block
+    of channels (its ``conv_w``/``conv_b`` and conv tail, the conv's output
+    gathered over 'model'). Returns this rank's heads' ``z``, ``x``,
+    ``dt``, the shared ``B``/``C``, its conv tail after the call, and
+    ``(d_inner, heads)`` of the rank."""
+    S = x.shape[1]
+    di, N, H = cfg.d_ssm_inner, cfg.ssm_state, cfg.n_ssm_heads
+    hd, K, m = cfg.ssm_head_dim, cfg.ssm_conv, grid.size("model")
+    Hl, C = H // m, di + 2 * N
+    h0, mi = grid.index("model") * H // m, grid.index("model")
+    zxbcdt = x @ p["in_proj"]
+    if p["in_proj"].shape[1] < 2 * di + 2 * N + H:
+        zxbcdt = grid.all_gather(zxbcdt, "model", 2)
+    Cl = p["conv_w"].shape[1]
+    c0 = di + (mi * Cl if Cl < C else 0)
+    xbc = zxbcdt[..., c0:c0 + Cl]  # the conv's channels of this rank
+    if cache is not None and S == 1:
+        pads = torch.cat([cache.conv, xbc], dim=1)
+    else:
+        pads = torch.nn.functional.pad(xbc, (0, 0, K - 1, 0))
+    conv = _conv(pads, p["conv_w"], p["conv_b"], S, K)
+    if Cl < C:
+        conv = grid.all_gather(conv, "model", 2)
+    xs = slice(h0 * hd, (h0 + Hl) * hd)
+    return (zxbcdt[..., xs], conv[..., xs], zxbcdt[..., 2 * di + 2 * N + h0:
+                                                    2 * di + 2 * N + h0 + Hl],
+            conv[..., di:], pads[:, pads.shape[1] - (K - 1):], Hl * hd, Hl)
+
+
 def mamba_block(p: dict, x, *, cfg, cache: SSMCache | None = None,
-                grid=None):
+                grid=None, serve: bool = False):
     """The Mamba2 block: in_proj -> causal depthwise conv -> SSD -> gated
     out_proj. With ``cache`` a call of S > 1 tokens is a prefill from
     position 0 (it leaves the final state and the conv's last inputs in the
     cache) and a call of one token a decode step against it; both write
     the cache in place.
 
-    On a live ``grid`` (training forward only) the rank runs its H/m heads:
-    ``in_proj``, ``conv_w`` and ``conv_b`` come whole (the caller gathers
-    them over 'model', or passes them through ``copy_to`` where the spec
-    leaves them whole: each rank's heads give a part of their gradients)
-    and ``_own_heads`` takes the rank's columns; ``A_log``, ``dt_bias``,
-    ``D`` and ``out_proj``'s rows are the rank's heads' shard, and
-    ``out_proj`` is row-parallel."""
+    On a live ``grid`` the rank runs its H/m heads; ``A_log``, ``dt_bias``,
+    ``D`` and ``out_proj``'s rows are their shard, and ``out_proj`` is
+    row-parallel. In training ``in_proj``, ``conv_w`` and ``conv_b`` come
+    whole (the caller gathers them over 'model', or passes them through
+    ``copy_to`` where the spec leaves them whole: each rank's heads give a
+    part of their gradients) and ``_own_heads`` takes the rank's columns.
+    Serving (``serve``) keeps them as the ``serve`` specs split them and
+    gathers activations instead (``_serve_columns``): the products of its
+    ``in_proj`` columns, and the conv's output over its block of channels,
+    the block its conv tail holds."""
     Bsz, S, d = x.shape
     di, N, H = cfg.d_ssm_inner, cfg.ssm_state, cfg.n_ssm_heads
     hd, K = cfg.ssm_head_dim, cfg.ssm_conv
-    w_in, conv_w, conv_b = p["in_proj"], p["conv_w"], p["conv_b"]
-    if grid is not None:
-        x = copy_to(x, grid, "model")
-        w_in, conv_w, conv_b, di, H = _own_heads(p, cfg, grid)
-
-    # projection layout: z (di) | xBC (di + 2N) | dt (H)
-    zxbcdt = x @ w_in
-    z = zxbcdt[..., :di]
-    xbc = zxbcdt[..., di:2 * di + 2 * N]
-    dt = zxbcdt[..., 2 * di + 2 * N:]
-
-    # depthwise causal conv over xBC (an explicit window sum; K small)
     decoding = cache is not None and S == 1
-    if decoding:
-        pads = torch.cat([cache.conv, xbc], dim=1)  # (B, K, .)
+    if grid is not None and serve:
+        x = copy_to(x, grid, "model")
+        z, xs, dt, bc, new_conv, di, H = _serve_columns(p, x, cfg, cache,
+                                                        grid)
     else:
-        pads = torch.nn.functional.pad(xbc, (0, 0, K - 1, 0))
-    new_conv = pads[:, pads.shape[1] - (K - 1):]
-    conv = pads[:, 0:S] * conv_w[0]
-    for i in range(1, K):
-        conv = conv + pads[:, i:i + S] * conv_w[i]
-    conv = silu(conv + conv_b)
+        w_in, conv_w, conv_b = p["in_proj"], p["conv_w"], p["conv_b"]
+        if grid is not None:
+            x = copy_to(x, grid, "model")
+            w_in, conv_w, conv_b, di, H = _own_heads(p, cfg, grid)
 
-    xs = conv[..., :di].reshape(Bsz, S, H, hd)
-    Bm = conv[..., di:di + N].float()
-    Cm = conv[..., di + N:].float()
+        # projection layout: z (di) | xBC (di + 2N) | dt (H)
+        zxbcdt = x @ w_in
+        z = zxbcdt[..., :di]
+        xbc = zxbcdt[..., di:2 * di + 2 * N]
+        dt = zxbcdt[..., 2 * di + 2 * N:]
+
+        if decoding:
+            pads = torch.cat([cache.conv, xbc], dim=1)  # (B, K, .)
+        else:
+            pads = torch.nn.functional.pad(xbc, (0, 0, K - 1, 0))
+        new_conv = pads[:, pads.shape[1] - (K - 1):]
+        conv = _conv(pads, conv_w, conv_b, S, K)
+        xs, bc = conv[..., :di], conv[..., di:]
+
+    xs = xs.reshape(Bsz, S, H, hd)
+    Bm = bc[..., :N].float()
+    Cm = bc[..., N:].float()
     A = -torch.exp(p["A_log"].float())  # (H,)
     dt = softplus(dt.float() + p["dt_bias"])  # (B, S, H)
 

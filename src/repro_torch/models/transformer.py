@@ -31,17 +31,21 @@ where the reference wraps its scan body in ``jax.checkpoint``.
 
 On a live ``grid`` (``launch/lm_mesh.py::ProcessGrid``, one process a rank
 of a (data, model) mesh) the model is built from one rank's shards, split as
-the reference's ``param_specs`` (mode ``train``) split them, and runs the
-training forward of every kind: each layer (the encoder's too) gathers its
-leaves' FSDP ('data') axes as it starts and drops them as it ends (autograd
-keeps what its backward needs unless ``cfg.remat`` recomputes the group,
-gathers included). Over 'model' run attention, MLA and cross-attention
-heads, SSM heads (``in_proj``/``conv_*`` used whole, each rank taking its
-heads' columns), FFN columns, the experts (EP with the global capacity,
-``moe.moe_ffn``) and the vocab; a leaf the spec leaves whole over
-'model' (a vocab, an FFN or expert bank the axis does not divide) runs
-whole on every rank. ``check_grid`` refuses a 'model' axis that splits a
-query or SSM head. Caches are not used there.
+the reference's ``param_specs`` of its ``mode`` split them: ``train``
+(FSDP × TP) or ``serve`` (weight-stationary TP, the expert banks' ff over
+'data'). Each layer (the encoder's too) gathers its leaves' FSDP axes
+(``lm_mesh.fsdp_axes``: 'data' in training, none in serving) as it starts
+and drops them as it ends (autograd keeps what its backward needs unless
+``cfg.remat`` recomputes the group, gathers included). Over 'model' run
+attention, MLA and cross-attention heads, SSM heads, FFN columns, the
+experts (EP with the global capacity, ``moe.moe_ffn``) and the vocab; a
+leaf the spec leaves whole over 'model' (a vocab, an FFN or expert bank
+the axis does not divide) runs whole on every rank. Training uses
+``in_proj``/``conv_*`` whole, each rank taking its heads' columns; serving
+keeps them split (``ssm.mamba_block``). Serving's caches are split as the
+reference's ``cache_specs_tree`` splits them (``serving/cache.py``,
+``models/attention.py``). ``check_grid`` refuses a 'model' axis that
+splits a query or SSM head.
 """
 
 from __future__ import annotations
@@ -54,7 +58,8 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (
-    CrossKV, KVCache, MLACache, cross_kv_project, gqa_attention, mla_attention,
+    CrossKV, KVCache, MLACache, all_kv_heads, cross_kv_project, gqa_attention,
+    mla_attention,
 )
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import (
@@ -232,12 +237,16 @@ class LayerCache:
                      if c is not None for t in c.tensors())
 
 
-#: the leaves a rank of a grid uses whole, where the spec splits them over
-#: 'model' (gathered) or leaves them whole (``copy_to``): every rank runs
-#: all of MLA's latent and rope key and the SSM's ``B``/``C`` and conv,
-#: its heads giving a part of their gradients
-MODEL_WHOLE = frozenset({"attn.w_dkv", "attn.w_krope", "ssm.in_proj",
-                         "ssm.conv_w", "ssm.conv_b"})
+#: the leaves a training rank of a grid uses whole, where the spec splits
+#: them over 'model' (gathered) or leaves them whole (``copy_to``): every
+#: rank runs all of MLA's latent and rope key and the SSM's ``B``/``C`` and
+#: conv, its heads giving a part of their gradients. A serving rank uses
+#: the latent's (whole under the ``serve`` specs) and runs the SSM on its
+#: shards (``ssm.mamba_block``)
+MODEL_WHOLE = {"train": frozenset({"attn.w_dkv", "attn.w_krope",
+                                   "ssm.in_proj", "ssm.conv_w",
+                                   "ssm.conv_b"}),
+               "serve": frozenset({"attn.w_dkv", "attn.w_krope"})}
 #: the K/V projections, used whole where the spec cuts them below a head
 KV_LEAVES = frozenset({"attn.wk", "attn.wv", "xattn.wk", "xattn.wv"})
 
@@ -245,7 +254,15 @@ KV_LEAVES = frozenset({"attn.wk", "attn.wv", "xattn.wk", "xattn.wv"})
 class _Layer(nn.Module):
     """What a decoder and an encoder layer share: their heads and their
     weights as the products use them, in one process or on a live grid
-    (``launch/lm_mesh.py::ProcessGrid``), where they are this rank's."""
+    (``launch/lm_mesh.py::ProcessGrid``), where they are this rank's under
+    the specs of ``mode``."""
+
+    def _on_grid(self, grid, specs, mode: str) -> None:
+        from repro_torch.launch.lm_mesh import fsdp_axes
+
+        self.grid, self.specs, self.mode = grid, specs, mode
+        self.fsdp = fsdp_axes(mode)
+        self._split_heads()
 
     def _split_heads(self) -> None:
         """The layer's heads: all of them in one process. On a grid this
@@ -264,30 +281,33 @@ class _Layer(nn.Module):
             self.kv_heads = Hkv
             self.kv_index = torch.arange(lo, lo + H // m) // (H // Hkv)
 
-    def _tp(self, name: str):
-        """The grid where the spec splits ``name`` over 'model' (the
-        products run tensor-parallel), else None (they run whole, alike
-        on every rank, or in one process)."""
-        if self.grid is None or "model" not in self.specs[name]:
+    def _tp(self, name: str, axis: str = "model"):
+        """The grid where the spec splits ``name`` over ``axis`` for its
+        products (not for storage alone: ``self.fsdp``), which then run
+        tensor-parallel there, else None (they run whole, alike on every
+        rank, or in one process)."""
+        if (self.grid is None or axis in self.fsdp
+                or axis not in self.specs[name]):
             return None
         return self.grid
 
     def _weights(self) -> dict:
         """The layer's weights as its products use them, by name. On a
-        grid each leaf's FSDP axis gathered over 'data'; the
-        ``MODEL_WHOLE`` leaves, and ``wk``/``wv`` where ``_split_heads``
-        computes every KV head, whole over 'model' too (gathered, or
-        passed through ``copy_to`` where the spec leaves them whole: their
-        gradients are then summed over 'model', each rank's heads giving a
-        part)."""
+        grid each leaf's FSDP axes (``self.fsdp``) gathered; the
+        ``MODEL_WHOLE`` leaves of the mode, and ``wk``/``wv`` where
+        ``_split_heads`` computes every KV head, whole over 'model' too
+        (gathered, or passed through ``copy_to`` where the spec leaves them
+        whole: their gradients are then summed over 'model', each rank's
+        heads giving a part)."""
         grid, out = self.grid, {}
         for name, w in self.named_parameters():
             if grid is not None:
                 spec = self.specs[name]
-                if "data" in spec:
-                    w = gather(w, grid, "data", spec.index("data"))
-                if name in MODEL_WHOLE or (self.kv_index is not None
-                                           and name in KV_LEAVES):
+                for ax in self.fsdp:
+                    if ax in spec:
+                        w = gather(w, grid, ax, spec.index(ax))
+                if name in MODEL_WHOLE[self.mode] or (
+                        self.kv_index is not None and name in KV_LEAVES):
                     w = (gather(w, grid, "model", spec.index("model"))
                          if "model" in spec else copy_to(w, grid, "model"))
             out[name] = w
@@ -304,27 +324,31 @@ class _Layer(nn.Module):
     def _cross_kv(self, p: dict, states, cache: CrossKV | None):
         """The layer's cross K/V heads of media or encoder ``states``:
         projected from them when they are given (a forward, or a prefill,
-        which writes them into ``cache``), read from a filled ``cache``
-        when not (a decode step). On a grid the states are replicated over
-        'model' (each rank's heads give a part of their gradient) and no
-        cache is used."""
+        which writes them into ``cache``), else the filled ``cache`` itself
+        (a decode step; ``gqa_attention`` reads it). On a grid the states
+        are replicated over 'model' (each rank's heads give a part of their
+        gradient) and the rank's heads projected; a cache takes every KV
+        head (``all_kv_heads``) of its frames (``cache.seq``)."""
         cfg = self.cfg
         if states is None:
             if cache is None or not cache.filled:
                 raise ValueError(
                     f"{cfg.name}: a cross layer needs media states, or "
                     "caches that a prefill with media has filled")
-            return cache.k, cache.v
+            return cache
         if self.grid is not None:
             states = copy_to(states, self.grid, "model")
         k, v = cross_kv_project(p, states, n_kv_heads=self.kv_heads,
                                 head_dim=cfg.head_dim)
         if cache is not None:
-            if cache.k.shape != k.shape:
-                raise ValueError(f"{cfg.name}: media K/V {tuple(k.shape)}, "
+            lo, hi = cache.seq or (0, k.shape[1])
+            kw, vw = (all_kv_heads(t, self.grid, self.kv_index)[:, lo:hi]
+                      for t in (k, v))
+            if cache.k.shape != kw.shape:
+                raise ValueError(f"{cfg.name}: media K/V {tuple(kw.shape)}, "
                                  f"the cache holds {tuple(cache.k.shape)}")
-            cache.k.copy_(k)
-            cache.v.copy_(v)
+            cache.k.copy_(kw)
+            cache.v.copy_(vw)
             cache.filled = True
         return k, v
 
@@ -344,13 +368,14 @@ class DecoderLayer(_Layer):
     ``moe_copies`` is that call's token copies (T·k, the global batch's on
     a grid) and ``moe_load`` the (E,) copies bound for each expert.
 
-    On a grid (the training forward; caches are not used) attention and
-    MLA run over this rank's heads, the SSM over its SSM heads,
-    cross-attention to the replicated media or encoder states, the FFN
-    tensor-parallel and the MoE FFN expert-parallel."""
+    On a grid attention and MLA run over this rank's heads, the SSM over
+    its SSM heads, cross-attention to the replicated media or encoder
+    states, the FFN tensor-parallel and the MoE FFN expert-parallel (its
+    ff over 'data' too under the ``serve`` specs); serving's caches are
+    the rank's shards."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec, p: dict,
-                 grid=None, specs: dict | None = None):
+                 grid=None, specs: dict | None = None, mode: str = "train"):
         super().__init__()
         self.cfg, self.spec = cfg, spec
         for name in ("ln1", "ln2", "ln_x", "mix_a", "mix_s"):
@@ -360,8 +385,7 @@ class DecoderLayer(_Layer):
             setattr(self, name, _group(p, name))
         self.act = silu if cfg.act == "silu" else gelu
         self.moe_stats = self.moe_copies = self.moe_load = None
-        self.grid, self.specs = grid, specs
-        self._split_heads()
+        self._on_grid(grid, specs, mode)
 
     def _ffn(self, h2, f: dict):
         """The FFN over ``h2`` with its weights ``f``."""
@@ -372,7 +396,8 @@ class DecoderLayer(_Layer):
                 capacity_factor=cfg.capacity_factor,
                 n_shared=cfg.n_shared_experts, grid=grid,
                 shared_grid=(self._tp("ffn.ws_gate")
-                             if cfg.n_shared_experts else None))
+                             if cfg.n_shared_experts else None),
+                ff_grid=self._tp("ffn.w_gate", "data"))
             self.moe_stats = (aux.detach(), dropped.detach())
             self.moe_load = load.detach()
             rows = h2.shape[0] * (1 if grid is None else grid.size("data"))
@@ -403,10 +428,10 @@ class DecoderLayer(_Layer):
                 rope_theta=cfg.rope_theta, cache=c.kv, pos=pos, grid=grid)
         elif spec.kind == "ssm":
             x = x + mamba_block(_sub(w, "ssm"), h, cfg=cfg, cache=c.ssm,
-                                grid=grid)
+                                grid=grid, serve=self.mode == "serve")
         elif spec.kind == "hybrid":
             m = mamba_block(_sub(w, "ssm"), h, cfg=cfg, cache=c.ssm,
-                            grid=grid)
+                            grid=grid, serve=self.mode == "serve")
             x = x + a * w["mix_a"] + m * w["mix_s"]
 
         if len(self.xattn):  # whisper decoder: cross-attend to the encoder
@@ -430,15 +455,14 @@ class EncoderLayer(_Layer):
     layer's."""
 
     def __init__(self, cfg: ModelConfig, p: dict, grid=None,
-                 specs: dict | None = None):
+                 specs: dict | None = None, mode: str = "train"):
         super().__init__()
         self.cfg = cfg
         self.ln1 = _param(p["ln1"])
         self.ln2 = _param(p["ln2"])
         self.attn = _group(p, "attn")
         self.ffn = _group(p, "ffn")
-        self.grid, self.specs = grid, specs
-        self._split_heads()
+        self._on_grid(grid, specs, mode)
 
     def forward(self, x, positions):
         cfg, w = self.cfg, self._weights()
@@ -459,13 +483,14 @@ def _checkpoint(fn, *args):
 
 
 def check_grid(cfg: ModelConfig, grid) -> None:
-    """Refuse what a grid does not run: a 'model' axis that splits a query
-    head (its size not dividing ``n_heads``, in a model with attention)
-    or an SSM head (not dividing ``n_ssm_heads``, in one with SSM
-    layers). Every kind of layer runs; a leaf the spec leaves whole over
-    'model' (a vocab, an FFN, an expert bank, ``in_proj`` that the axis
-    does not divide) runs whole on each rank, and KV heads the spec cuts
-    below a head are computed whole on each (``_split_heads``)."""
+    """Refuse what a grid does not run, under either mode's specs: a
+    'model' axis that splits a query head (its size not dividing
+    ``n_heads``, in a model with attention) or an SSM head (not dividing
+    ``n_ssm_heads``, in one with SSM layers). Every kind of layer runs;
+    a leaf the spec leaves whole over 'model' (a vocab, an FFN, an expert
+    bank, ``in_proj`` that the axis does not divide) runs whole on each
+    rank, and KV heads the spec cuts below a head are computed whole on
+    each (``_split_heads``)."""
     m = grid.size("model")
     if m == 1:
         return
@@ -486,13 +511,16 @@ class Transformer(nn.Module):
     """The stack over ``params``, a ``{name: tensor}`` dict in
     ``param_shapes``' naming (taken as they are, not copied). With a live
     ``grid``, ``params`` holds this rank's shards, each of the shape its
-    spec (``grid.param_specs(cfg)``) gives it."""
+    spec (``grid.param_specs(cfg, mode)``) gives it: ``mode`` ``train``
+    or ``serve``."""
 
     def __init__(self, cfg: ModelConfig, params: dict[str, torch.Tensor],
-                 grid=None):
+                 grid=None, mode: str = "train"):
+        from repro_torch.launch.lm_mesh import fsdp_axes
+
         super().__init__()
-        self.grid = grid
-        specs = None if grid is None else grid.param_specs(cfg)
+        self.grid, self.mode, self.fsdp = grid, mode, fsdp_axes(mode)
+        specs = None if grid is None else grid.param_specs(cfg, mode)
         shapes = param_shapes(cfg)
         if grid is not None:
             check_grid(cfg, grid)
@@ -519,11 +547,13 @@ class Transformer(nn.Module):
         self.specs = specs
         self.layers = nn.ModuleList(
             DecoderLayer(cfg, spec, sub(f"layers.{i}."), grid,
-                         None if grid is None else sub(f"layers.{i}.", specs))
+                         None if grid is None else sub(f"layers.{i}.", specs),
+                         mode)
             for i, spec in enumerate(layer_specs(cfg)))
         self.encoder = nn.ModuleList(
             EncoderLayer(cfg, sub(f"encoder.{j}."), grid,
-                         None if grid is None else sub(f"encoder.{j}.", specs))
+                         None if grid is None else sub(f"encoder.{j}.", specs),
+                         mode)
             for j in range(cfg.n_enc_layers))
         #: the grid where the spec splits the vocab over 'model' (embedding,
         #: logits and loss vocab-parallel), else None: the table runs whole
@@ -632,23 +662,45 @@ class Transformer(nn.Module):
         ``(logits, aux)``: the MoE load-balance losses summed in stack
         order (float32 0 without MoE layers)."""
         B, S = tokens.shape
-        x = embed(tokens, self._table("embed"), self.vocab_grid).to(
-            self.cfg.dtype)
+        x = self.embed_tokens(tokens)
         x, aux = self.apply_stack(x, _arange(S, B, tokens.device),
                                   **self.media_states(media))
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        name = "embed" if self.cfg.tie_embeddings else "unembed"
-        logits = unembed(x, self._table(name), self.vocab_grid)
+        logits = self._unembed(x)
         return (logits, aux) if with_aux else logits
+
+    def embed_tokens(self, tokens) -> torch.Tensor:
+        """The tokens' embeddings in ``cfg.dtype`` (vocab-parallel on a
+        grid that splits the vocab)."""
+        return embed(tokens, self._table("embed"), self.vocab_grid).to(
+            self.cfg.dtype)
+
+    def _unembed(self, x) -> torch.Tensor:
+        """Float32 logits; on a grid that splits the vocab, this rank's."""
+        name = "embed" if self.cfg.tie_embeddings else "unembed"
+        return unembed(x, self._table(name), self.vocab_grid)
+
+    def head_logits(self, x) -> torch.Tensor:
+        """Float32 logits over the whole vocab of normed states ``x``: on a
+        grid that splits the vocab, every rank's gathered over 'model'
+        (serving picks its tokens from them)."""
+        logits = self._unembed(x)
+        if self.vocab_grid is None:
+            return logits
+        return self.grid.all_gather(logits, "model", logits.dim() - 1)
 
     def _table(self, name: str) -> torch.Tensor:
         """The embedding or unembedding table; on a grid this rank's vocab
         rows (all of them where the spec leaves the vocab whole over
-        'model'), gathered over 'data'."""
+        'model'), gathered over the FSDP axes."""
         t = getattr(self, name)
-        if self.grid is None or "data" not in self.specs[name]:
+        if self.grid is None:
             return t
-        return gather(t, self.grid, "data", self.specs[name].index("data"))
+        spec = self.specs[name]
+        for ax in self.fsdp:
+            if ax in spec:
+                t = gather(t, self.grid, ax, spec.index(ax))
+        return t
 
 
 def init_weights(cfg: ModelConfig, seed: int, device, keep=None) -> dict:

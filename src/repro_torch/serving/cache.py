@@ -2,7 +2,8 @@
 ``serving/cache.py``: a :class:`LayerCache` a layer holding a GQA ring, an
 MLA latent ring, an SSM state and conv tail, and the cross K/V of the media
 (``xkv``, the VLM's cross layers) or of the encoder's states (``ekv``, each
-of Whisper's decoder layers)."""
+of Whisper's decoder layers). On a live grid a rank allocates only its shard
+of each leaf, as the reference's ``cache_specs_tree`` splits it."""
 
 from __future__ import annotations
 
@@ -45,16 +46,36 @@ def _layer_cache(cfg: ModelConfig, spec: LayerSpec, B: int, max_len: int,
 
 
 def make_caches(cfg: ModelConfig, B: int, max_len: int,
-                n_media: int | None = None, device=None) -> list[LayerCache]:
+                n_media: int | None = None, device=None,
+                grid=None) -> list[LayerCache]:
     """One cache a layer, in stack order: ``Lc = window`` for a
     sliding-window layer, ``max_len`` for a global one; cross K/V for
     ``n_media`` media tokens or encoder frames (``cfg.n_media_tokens`` by
     default). For Whisper ``max_len`` counts the decoder's own positions
-    only (448 in its serving shapes)."""
+    only (448 in its serving shapes).
+
+    On a live ``grid`` (``launch/lm_mesh.py::ProcessGrid``) the caches of
+    the global batch ``B`` as this rank holds them: each leaf its shard
+    (``grid.cache_shard``: the batch over 'data', the slots, frames, SSM
+    heads or conv channels over 'model'), a cache split by slots or frames
+    naming its block in ``seq``; nothing whole is allocated."""
     device = resolve_device(device)
     n_media = n_media if n_media is not None else cfg.n_media_tokens
-    return [_layer_cache(cfg, spec, B, max_len, n_media, device)
-            for spec in layer_specs(cfg)]
+    if grid is None:
+        return [_layer_cache(cfg, spec, B, max_len, n_media, device)
+                for spec in layer_specs(cfg)]
+    caches = [_layer_cache(cfg, spec, B, max_len, n_media, "meta")
+              for spec in layer_specs(cfg)]
+    for name, t in list(cache_leaves(caches)):
+        _, i, field, leaf = name.split(".")
+        spec, idx = grid.cache_shard(name, t.shape)
+        sub = getattr(caches[int(i)], field)
+        setattr(sub, leaf, torch.full(
+            tuple(s.stop - s.start for s in idx), -1 if leaf == "pos" else 0,
+            dtype=t.dtype, device=device))
+        if leaf in ("k", "c_kv") and spec[1] is not None:
+            sub.seq = (idx[1].start, idx[1].stop)
+    return caches
 
 
 def abstract_caches(cfg: ModelConfig, B: int, max_len: int,

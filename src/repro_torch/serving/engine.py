@@ -4,7 +4,11 @@ the JAX package's ``serving/engine.py``.
 ``prefill(model, tokens, caches, media)`` runs the causal forward and fills
 the caches; ``decode_step(model, caches, token, pos)`` advances the whole
 batch one token against them. Caches are written in place. Tokens are chosen
-on the device: the loop never waits for the card to pick one.
+on the device: the loop never waits for the card to pick one. The same
+functions serve a rank of a live grid (a ``Transformer`` built with
+``mode="serve"`` and ``make_caches(..., grid=)``): its rows of the batch,
+its shards of the weights and caches, and logits over the whole vocab
+(``Transformer.head_logits``).
 
 **Where the port departs from the reference: the media reach the output.**
 The reference makes the cross K/V caches (``xkv`` of the VLM's cross
@@ -22,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import embed, rms_norm, unembed
+from repro_torch.models.layers import rms_norm
 from repro_torch.models.transformer import LayerCache, Transformer
 
 
@@ -34,12 +38,12 @@ def prefill(model: Transformer, tokens: torch.Tensor,
     cfg = model.cfg
     B, S = tokens.shape
     states = model.media_states(media)
-    x = embed(tokens, model.embed).to(cfg.dtype)
+    x = model.embed_tokens(tokens)
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
     x, _ = model.apply_stack(x, positions, caches, **states)
     x = rms_norm(x[:, -1:], model.final_norm, cfg.norm_eps)
-    return unembed(x, model.table)[:, 0]
+    return model.head_logits(x)[:, 0]
 
 
 def decode_step(model: Transformer, caches: list[LayerCache],
@@ -49,11 +53,11 @@ def decode_step(model: Transformer, caches: list[LayerCache],
     Returns logits (B, vocab)."""
     cfg = model.cfg
     B = token.shape[0]
-    x = embed(token, model.embed).to(cfg.dtype)
+    x = model.embed_tokens(token)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=token.device)
     x, _ = model.apply_stack(x, positions, caches, pos)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
-    return unembed(x, model.table)[:, 0]
+    return model.head_logits(x)[:, 0]
 
 
 def greedy_generate(model: Transformer, prompt: torch.Tensor,

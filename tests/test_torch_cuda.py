@@ -1208,7 +1208,7 @@ def test_lm_mesh_kinds_gloo_on_card_match_the_cpu_grid(cuda):
 
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import synthetic_batch
-    from repro_torch.launch.lm_mesh import TrainCase, run_train_mesh_cases
+    from repro_torch.launch.lm_mesh import TrainCase, run_lm_mesh_cases
     from repro_torch.launch.mesh import visible_gpus
     from repro_torch.models.transformer import param_dtype, param_shapes
 
@@ -1222,10 +1222,10 @@ def test_lm_mesh_kinds_gloo_on_card_match_the_cpu_grid(cuda):
             for k, s in param_shapes(cfg).items()}
         cases.append(TrainCase(cfg, params, synthetic_batch(
             cfg, 0, 32, 8, device="cpu"), keep=("params", "grads")))
-    cpu = run_train_mesh_cases(cases, (2, 4), device="cpu", timeout=300)
-    card = run_train_mesh_cases(cases, (2, 4), device="cuda",
-                                backend="gloo", gpus=visible_gpus()[:1],
-                                timeout=300)
+    cpu = run_lm_mesh_cases(cases, (2, 4), device="cpu", timeout=300)
+    card = run_lm_mesh_cases(cases, (2, 4), device="cuda",
+                             backend="gloo", gpus=visible_gpus()[:1],
+                             timeout=300)
     for got, want in zip(card.results, cpu.results):
         _lm_mesh_close(got, want)
         assert got.metrics[0].get("dropped") == want.metrics[0].get(
@@ -1252,6 +1252,45 @@ def test_lm_mesh_nccl_one_rank_equals_one_process(cuda):
     assert res.metrics[0]["loss"] == float(m["loss"])
     for k, p in model.named_parameters():
         assert torch.equal(res.params[k], p.cpu()), k
+
+
+def test_lm_serve_mesh_nccl_one_rank_equals_one_process(cuda):
+    """run_lm_mesh_cases under NCCL at (1, 1), bf16, on the serve specs:
+    the one-process greedy serving on the card, logits and tokens bit for
+    bit (a one-rank grid runs its arithmetic): reduced gemma3 with windows
+    of 8, which its 12-token prompt passes, and mamba2 (the SSM's serving
+    path)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.launch.lm_mesh import ServeCase, run_lm_mesh_cases
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.cache import make_caches
+    from repro_torch.serving.engine import decode_step, prefill
+
+    cases, want = [], []
+    for arch in ("gemma3-12b", "mamba2-2.7b"):
+        cfg = get_config(arch).reduced()
+        cfg = dataclasses.replace(cfg, pattern=tuple(
+            dataclasses.replace(s, window=8) if s.window else s
+            for s in cfg.pattern))
+        toks = synthetic_batch(cfg, 0, 12, 4, device="cpu")["tokens"]
+        model = init_params(cfg, 0, "cuda")
+        caches = make_caches(cfg, 4, 20, device="cuda")
+        logits = [prefill(model, toks.cuda(), caches)]
+        picked = [logits[0].argmax(-1, keepdim=True).to(torch.int32)]
+        for i in range(6):
+            logits.append(decode_step(model, caches, picked[-1], 12 + i))
+            picked.append(logits[-1].argmax(-1, keepdim=True).to(torch.int32))
+        want.append((torch.stack(logits, 1).cpu(), torch.cat(picked, 1).cpu()))
+        cases.append(ServeCase(cfg, 0, toks, 7, cache_len=20))
+        del model, caches
+    run = run_lm_mesh_cases(cases, (1, 1), device="cuda", backend="nccl",
+                            timeout=300)
+    for res, (logits, tokens) in zip(run.results, want):
+        assert torch.equal(res.logits, logits)
+        assert torch.equal(res.tokens, tokens)
 
 
 def test_lm_mesh_nccl_two_ranks(cuda):

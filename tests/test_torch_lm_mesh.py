@@ -140,7 +140,7 @@ def runs():
             params, opt = _jax_single.trees[(1, 1, False, ARCH)]
             resumed = _case(keep=("params", "mu", "nu"))
             resumed = dataclasses.replace(resumed, params=params, opt=opt)
-            run = lm_mesh.run_train_mesh_cases(
+            run = lm_mesh.run_lm_mesh_cases(
                 [_case(**kw) for kw in CASES.values()] + [resumed], shape,
                 device="cpu", timeout=TIMEOUT)
             done[shape] = dict(zip(list(CASES) + ["resumed"], run.results))

@@ -158,8 +158,8 @@ def runs():
                           repeats=2 if a == REPEATED and shape == (2, 4)
                           else 1) for a in ARCHS]
             cases += [case(**kw) for kw in EXTRA[shape].values()]
-            run = lm_mesh.run_train_mesh_cases(cases, shape, device="cpu",
-                                               timeout=TIMEOUT)
+            run = lm_mesh.run_lm_mesh_cases(cases, shape, device="cpu",
+                                            timeout=TIMEOUT)
             done[shape] = dict(zip(names, run.results))
         return done[shape]
     return get

@@ -142,7 +142,7 @@ def runs(jax_sharded):
 
     def get(shape):
         if shape not in done:
-            run = lm_mesh.run_train_mesh_cases(
+            run = lm_mesh.run_lm_mesh_cases(
                 [case(a, "bf16", keep=("params",)) for a in ARCHS], shape,
                 device="cpu", timeout=TIMEOUT)
             done[shape] = dict(zip(ARCHS, run.results))

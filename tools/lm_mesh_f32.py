@@ -53,7 +53,7 @@ def main(argv=None) -> int:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import synthetic_batch
-    from repro_torch.launch.lm_mesh import TrainCase, run_train_mesh_cases
+    from repro_torch.launch.lm_mesh import TrainCase, run_lm_mesh_cases
 
     if not torch.cuda.is_available():
         print("lm_mesh_f32: no CUDA device", file=sys.stderr)
@@ -74,7 +74,7 @@ def main(argv=None) -> int:
     print(f"card pass against the CPU pass: {gaps(card['grads'], cpu['grads'])}")
     for shape in SHAPES:
         t0 = time.perf_counter()
-        res = run_train_mesh_cases(
+        res = run_lm_mesh_cases(
             [TrainCase(cfg, args.seed, batch, steps=0, keep=("grads",))],
             shape, device="cuda", backend="gloo", timeout=300).results[0]
         m = res.grads_metrics

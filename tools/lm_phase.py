@@ -15,7 +15,12 @@ minitron-4b at full width and depth taking 5 AdamW steps, twice) and/or
 phase 19 (the train step on a (2, 4) mesh of gloo ranks sharing the card,
 against this process's: minitron-4b, then one group each of
 deepseek-v2-lite-16b, mamba2-2.7b and whisper-large-v3; and NCCL x1 at
-(1, 1)). Needs no kernel build.
+(1, 1); then 19(e), serving under the reference's serve specs on the
+same spawn: gemma3-12b, deepseek-v2-lite-16b, mamba2-2.7b and
+whisper-large-v3 one group each in bf16, deepseek in float32). 19(e)'s
+bf16 bar is the reference's 0.25, or phase 16's bf16 gap where that runs
+first in the same call (``--phase 16,19``) and is larger. Needs no kernel
+build.
 """
 
 from __future__ import annotations
@@ -56,16 +61,17 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(power)
+    gap = 0.0  # phase 16's bf16 gap, for 19(e)'s bar
     for phase in args.phase.split(","):
         t0 = time.perf_counter()
         if phase == "16":
-            cs.phase_lm(args.seed, power)
+            gap = cs.phase_lm(args.seed, power)["bf16_gap"]
         elif phase == "17":
             cs.phase_lm_kinds(args.seed, power)
         elif phase == "18":
             cs.phase_lm_train(args.seed, power)
         elif phase == "19":
-            cs.phase_lm_mesh(args.seed, power)
+            cs.phase_lm_mesh(args.seed, power, gap)
         else:
             ap.error(f"--phase: {phase!r} is not 16, 17, 18 or 19")
         print(f"phase {phase} {time.perf_counter() - t0:.1f} s; card {power}")
