@@ -34,7 +34,17 @@ Phases, each of which ends the run non-zero on a failure:
    per superstep, edges/s and peak device memory; ``recoded`` and
    ``recoded_compact`` PageRank run twice, bit-identical; a dense ring
    round's ``_combine_scatter`` on the card against the same call on the
-   CPU, bit for bit;
+   CPU, bit for bit; then an OR reachability program (a float32 0/1 flag,
+   ``combiner = OR``, no ``msg_kind``) from the BFS source under
+   ``recoded`` (on the torch backend, which the default config picks for
+   it), ``recoded_compact``, ``basic`` and ``basic_sc``: every mode's
+   values, active sets and halt step equal to ``recoded``'s, and its
+   message counts too but ``recoded_compact``'s, which count the shards
+   that sent a vertex anything; the reached set equal to phase 4's finite
+   BFS distances and each superstep's active and message counts to BFS's;
+   the default config resolving ``"kernel"`` for the four main-path
+   programs and ``"torch"`` for OR, and ``backend="kernel"`` with OR
+   refused before any launch;
 6. recovery on the same partition: PageRank and Hash-Min with a
    checkpointer and a message log, one shard recovered from the log against
    the live run, and a run resumed from the checkpoint against the
@@ -215,6 +225,16 @@ Phases, each of which ends the run non-zero on a failure:
     capacity of each data rank's tokens would drop another count on this
     process's routing, and the tokens whose routing parts, with their
     router margins, are printed.
+
+20. the two example twins (``repro_torch.examples``): ``quickstart`` and
+    ``graph_analytics`` on the card, each held to the same twin run with
+    ``--device cpu`` in this process (PageRank within 1e-5 of the largest
+    value, the rank mass within 1e-5, the recovery error 0, the component
+    and reached counts and every superstep count equal, the planner's mode
+    and knobs equal), then ``quickstart`` at RMAT scale 20 with 64 MiB a
+    machine (the default's 256 KiB times 2^8, |V| and the budget scaled
+    together) against ``_pagerank_numpy``, with the planner's mode, the host
+    seconds and the ms a superstep.
 
 It prints the launch counts of the main path's runs, and the per-kernel JSON
 line and the device line last. It needs a CUDA device and the CUDA toolkit.
@@ -662,8 +682,8 @@ def _pagerank_numpy(n_vertices, src, dst, iters, damping=0.85):
     a = np.full(n_vertices, 1.0 / n_vertices)
     for _ in range(iters):
         share = damping * a[src] / deg[src]
-        a = np.full(n_vertices, 0.15 / n_vertices)
-        np.add.at(a, dst, share)
+        a = 0.15 / n_vertices + np.bincount(dst, weights=share,
+                                            minlength=n_vertices)
     return a
 
 
@@ -926,7 +946,10 @@ def phase_main(pg, src: int) -> dict:
     print("main path: kernel backend == torch backend (pagerank within "
           f"{PAGERANK_REL_TOL} of its scale and rtol {PAGERANK_RTOL}, the "
           "rest exact)")
-    return launches
+    bfs = kern["bfs"]
+    return dict(launches=launches,
+                bfs_reached=torch.isfinite(bfs["values"]) & pg.vmask,
+                bfs_steps=[(h.n_active, h.n_msgs) for h in bfs["hist"]])
 
 
 # --------------------------------------------------------------------------
@@ -1044,6 +1067,92 @@ def phase_modes(pg, seed: int) -> dict:
               f"{UNORDERED_MS[r['run'].split()[0]]}"
               for r in rows if r["run"].endswith(" pagerank")))
     return dict(rows=rows, hashmin_steps=len(ref["hashmin"][2]), ref=ref)
+
+
+def or_reach(src: int):
+    """OR reachability from ``src``: a float32 0/1 flag that a newly reached
+    vertex sends along its out-edges, combined with OR. It declares no
+    ``msg_kind``, so the kernels cannot compute it."""
+    import torch
+    from repro_torch.core import OR, VertexProgram
+
+    class Reach(VertexProgram):
+        combiner = OR
+
+        def init(self, ctx):
+            flag = (ctx.new_ids == src).to(torch.float32)
+            return flag, flag > 0
+
+        def message(self, value, degree, weight, step):
+            return value
+
+        def apply(self, value, degree, msg, has_msg, active, step, ctx):
+            got = has_msg & (msg > 0) & (value == 0)
+            return torch.where(got, 1.0, value), got
+
+    return Reach()
+
+
+def phase_or(pg, src: int, main_path: dict) -> None:
+    """The OR combiner and the default backend on the main partition: OR
+    reachability from the BFS source in the four in-memory modes, each
+    against ``recoded`` exactly, its reached set against phase 4's BFS; the
+    default config's backend for the main path's programs and for OR; and
+    ``backend="kernel"`` with OR refused before a launch."""
+    import torch
+    from repro_torch.core import ConfigError, EngineConfig, GraphDEngine
+    from repro_torch.kernels.digest import digest
+    from repro_torch.kernels.edge_combine import edge_combine
+
+    edge_combine.launches = digest.launches = 0
+    resolved = {name: EngineConfig().finalize(make()).backend
+                for name, make in programs(src)}
+    resolved["or"] = GraphDEngine(pg, or_reach(src)).backend
+    want = {"pagerank": "kernel", "hashmin": "kernel", "sssp": "kernel",
+            "bfs": "kernel", "or": "torch"}
+    check(resolved == want, f"or: the default config resolves {resolved}")
+    try:
+        GraphDEngine(pg, or_reach(src), EngineConfig(backend="kernel"))
+        refused = ""
+    except ConfigError as e:
+        refused = str(e)
+    check("combiner" in refused or "msg_kind" in refused,
+          "or: backend='kernel' with OR was not refused")
+    runs = {}
+    for mode in TORCH_MODES:
+        eng = GraphDEngine(pg, or_reach(src), EngineConfig(mode=mode))
+        check(eng.backend == "torch", f"or {mode}: backend {eng.backend}")
+        (v, a), hist, row = timed_run(eng, f"{mode} or")
+        runs[mode] = (v, a, [(h.n_active, h.n_msgs) for h in hist], row)
+    check(edge_combine.launches == 0 and digest.launches == 0,
+          "or: a kernel was launched for a program the kernels cannot "
+          "compute")
+    rv, ra, rsteps, _ = runs["recoded"]
+    for mode, (v, a, steps, _) in runs.items():
+        check(torch.equal(v, rv) and torch.equal(a, ra),
+              f"or {mode}: values or active set differ from recoded")
+        check(len(steps) == len(rsteps)
+              and [s[0] for s in steps] == [s[0] for s in rsteps],
+              f"or {mode}: active counts or halt step differ from recoded")
+        if mode == "recoded_compact":
+            # counts the shards that sent a vertex anything, as the
+            # reference's compact exchange does
+            check(all(s[1] <= r[1] for s, r in zip(steps, rsteps)),
+                  "or recoded_compact: more messages than recoded")
+        else:
+            check(steps == rsteps,
+                  f"or {mode}: message counts differ from recoded")
+    reached = rv > 0
+    check(torch.equal(reached, main_path["bfs_reached"]),
+          "or: the reached set differs from phase 4's finite BFS distances")
+    check(rsteps == main_path["bfs_steps"],
+          "or: active and message counts a superstep differ from BFS's")
+    print(f"or: default backend {resolved}; backend='kernel' refused before "
+          f"a launch ({refused}); {int(reached.sum())} vertices reached in "
+          f"{len(rsteps)} supersteps, equal to phase 4's BFS; every mode "
+          "equal to recoded (recoded_compact's message counts: the sending "
+          "shards); ms a superstep " + ", ".join(
+              f"{m} {r[3]['ms_per_superstep']:.3f}" for m, r in runs.items()))
 
 
 # --------------------------------------------------------------------------
@@ -4165,6 +4274,100 @@ def phase_lm_mesh(seed: int, power: str, bf16_gap: float = 0.0) -> dict:
     return dict(seconds=seconds)
 
 
+# --------------------------------------------------------------------------
+# phase 20: the example twins
+# --------------------------------------------------------------------------
+
+#: quickstart's run at a real size: RMAT scale 20 (edge factor 16) with the
+#: default budget of 256 KiB a machine scaled with |V|, 2^(20 - 12) times
+TWIN_SCALE = 20
+TWIN_RAM = (256 << 10) << (TWIN_SCALE - 12)
+
+
+def _same_ranks(got: dict, want: dict, what: str) -> tuple[float, float]:
+    """PageRank values keyed by vertex id: the same vertices, every value
+    within PAGERANK_REL_TOL of the largest, the rank mass within
+    PAGERANK_TOL. Returns (the gap over the largest value, the mass gap)."""
+    check(got.keys() == want.keys(), f"{what}: other vertices")
+    keys = list(want)
+    g = np.array([got[k] for k in keys])
+    w = np.array([want[k] for k in keys])
+    check(bool(np.isfinite(g).all()), f"{what}: non-finite values")
+    rel = float(np.abs(g - w).max() / np.abs(w).max())
+    mass = abs(float(g.sum()) - float(w.sum()))
+    check(rel < PAGERANK_REL_TOL, f"{what}: {rel} of the largest value")
+    check(mass < PAGERANK_TOL, f"{what}: rank mass {mass} apart")
+    return rel, mass
+
+
+def _stats(history) -> list:
+    return [(h.step, h.n_active, h.n_msgs) for h in history]
+
+
+def phase_twins(power: str) -> dict:
+    """``quickstart`` and ``graph_analytics`` on the card, each against the
+    same twin on this process's CPU; then ``quickstart`` at RMAT scale 20
+    against ``_pagerank_numpy``."""
+    import torch
+    from repro_torch.examples import graph_analytics, quickstart
+
+    t_phase = time.perf_counter()
+    for name, module in (("quickstart", quickstart),
+                         ("graph_analytics", graph_analytics)):
+        t0 = time.perf_counter()
+        card = module.main([])  # the default device: this card
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = module.main(["--device", "cpu"])
+        t_cpu = time.perf_counter() - t0
+        what = f"twins {name}"
+        for key in ("n_vertices", "n_edges", "mode", "pipeline", "knobs"):
+            check(card[key] == cpu[key],
+                  f"{what}: {key} {card[key]} on the card, {cpu[key]} on "
+                  "the CPU")
+        rel, mass = _same_ranks(card["values"], cpu["values"], what)
+        if name == "quickstart":
+            check(_stats(card["history"]) == _stats(cpu["history"]),
+                  f"{what}: superstep counts differ from the CPU's")
+            counts = f"{len(card['history'])} supersteps"
+        else:
+            check(card["recovery_err"] == 0.0 and cpu["recovery_err"] == 0.0,
+                  f"{what}: recovery error {card['recovery_err']} on the "
+                  f"card, {cpu['recovery_err']} on the CPU")
+            keys = ("pagerank_supersteps", "components", "hashmin_halt",
+                    "sssp_reached", "sssp_supersteps", "expert_supersteps")
+            for key in keys:
+                check(card[key] == cpu[key],
+                      f"{what}: {key} {card[key]} on the card, {cpu[key]} "
+                      "on the CPU")
+            counts = ", ".join(f"{k} {card[k]}" for k in keys)
+        print(f"twins {name}: card {t_card:.1f} s, CPU {t_cpu:.1f} s (host "
+              f"seconds); mode {card['mode']}; PageRank gap over the "
+              f"largest value {rel:.4g}, rank mass gap {mass:.4g}; {counts} "
+              "equal to the CPU's")
+    t0 = time.perf_counter()
+    big = quickstart.main(["--scale", str(TWIN_SCALE),
+                           "--ram-per-shard", str(TWIN_RAM)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    g = big["graph"]
+    # the sparse ids' positions among the sorted vertex ids
+    at = lambda ids: np.searchsorted(g.vertex_ids, ids)
+    pr = _pagerank_numpy(g.n_vertices, at(g.src), at(g.dst), 10)
+    rel, mass = _same_ranks(
+        big["values"], dict(zip(g.vertex_ids.tolist(), pr.tolist())),
+        f"twins quickstart scale {TWIN_SCALE}")
+    ms = sorted(h.seconds * 1e3 for h in big["history"])
+    print(f"twins quickstart at RMAT scale {TWIN_SCALE} ef 16 (|V| "
+          f"{g.n_vertices}, |E| {g.n_edges}), {TWIN_RAM} B a machine: mode "
+          f"{big['mode']}, {secs:.1f} host seconds in all, ms a superstep "
+          f"{ms[len(ms) // 2]:.3f} (median of {len(ms)}); against numpy "
+          f"{rel:.4g} of the largest value, rank mass gap {mass:.4g}")
+    print(f"twins: {time.perf_counter() - t_phase:.1f} s; card {power}")
+    return dict(mode=big["mode"], seconds=secs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=24)
@@ -4220,9 +4423,12 @@ def main(argv=None) -> int:
     lap("2")
     phase_small(args.seed)
     lap("3")
-    launches = phase_main(pg, src)
+    main_path = phase_main(pg, src)
+    launches = main_path["launches"]
     lap("4")
     modes = phase_modes(pg, args.seed)
+    phase_or(pg, src, main_path)
+    del main_path
     lap("5")
     phase_recovery(pg, modes["hashmin_steps"])
     lap("6")
@@ -4260,6 +4466,8 @@ def main(argv=None) -> int:
     lap("18")
     phase_lm_mesh(args.seed, built["power"], lm["bf16_gap"])
     lap("19")
+    phase_twins(built["power"])
+    lap("20")
     for name, k in kernels.items():
         k["launches"] = launches[name]
         k["mesh_launches_per_rank"] = mesh["launches_per_rank"][name]

@@ -19,7 +19,7 @@ _EXPORTS = {
         "algorithms": ("BFS", "SSSP", "DegreeSum", "DistinctInLabels",
                        "HashMin", "LabelSpread", "PageRank",
                        "SecondMinLabel"),
-        "api": ("IMAX", "IMIN", "MAX", "MIN", "SUM", "Combiner",
+        "api": ("IMAX", "IMIN", "MAX", "MIN", "OR", "SUM", "Combiner",
                 "ShardContext", "VertexProgram", "keep_halted",
                 "segment_count_distinct", "segment_second_min",
                 "segment_sum"),
@@ -49,7 +49,7 @@ from repro_torch.core.plan import plan  # noqa: E402
 __all__ = [
     "BFS", "SSSP", "DegreeSum", "DistinctInLabels", "HashMin", "LabelSpread",
     "PageRank", "SecondMinLabel",
-    "IMAX", "IMIN", "MAX", "MIN", "SUM", "Combiner", "ShardContext",
+    "IMAX", "IMIN", "MAX", "MIN", "OR", "SUM", "Combiner", "ShardContext",
     "VertexProgram", "keep_halted", "segment_count_distinct",
     "segment_second_min", "segment_sum",
     "Checkpointer", "MessageLog", "RunFileMessageLog", "recover_shard",

@@ -27,9 +27,16 @@ from repro_torch.kernels.run_sum import run_sum
 
 @dataclass(frozen=True)
 class Combiner:
-    """A commutative, associative combine with identity ``e0``."""
+    """A commutative, associative combine with identity ``e0``.
 
-    name: str  # "sum" | "min" | "max"
+    ``"or"`` is the boolean semiring's: its messages are 0 or 1 in the
+    message dtype and compare as booleans, as the JAX package's ``OR`` is
+    tested. It keeps that dtype (a ring accumulator stays what it was), so
+    ``combine`` is a logical or cast back, and ``scatter``/``reduce`` are
+    the max, which is the or on {0, 1}. The hand-written kernels compute
+    only sum, min and max; an OR program runs on the torch backend."""
+
+    name: str  # "sum" | "min" | "max" | "or"
     e0: Any  # scalar identity, cast to the message dtype
 
     def identity(self, shape, dtype, device) -> torch.Tensor:
@@ -42,6 +49,8 @@ class Combiner:
             return torch.minimum(a, b)
         if self.name == "max":
             return torch.maximum(a, b)
+        if self.name == "or":
+            return torch.logical_or(a, b).to(torch.result_type(a, b))
         raise ValueError(self.name)
 
     def scatter(self, target: torch.Tensor, idx: torch.Tensor,
@@ -51,8 +60,9 @@ class Combiner:
         messages, so the reduction includes it."""
         if self.name == "sum":
             return target.index_add_(0, idx, msgs)
-        if self.name in ("min", "max"):
-            return target.scatter_reduce_(0, idx, msgs, "a" + self.name,
+        if self.name in ("min", "max", "or"):
+            op = "amin" if self.name == "min" else "amax"  # or = max on {0, 1}
+            return target.scatter_reduce_(0, idx, msgs, op,
                                           include_self=True)
         raise ValueError(self.name)
 
@@ -62,7 +72,7 @@ class Combiner:
             return x.sum(dim)
         if self.name == "min":
             return x.amin(dim)
-        if self.name == "max":
+        if self.name in ("max", "or"):
             return x.amax(dim)
         raise ValueError(self.name)
 
@@ -72,6 +82,7 @@ MIN = Combiner("min", float("inf"))
 MAX = Combiner("max", float("-inf"))
 IMIN = Combiner("min", 2**31 - 1)  # int messages
 IMAX = Combiner("max", -(2**31))
+OR = Combiner("or", 0)  # messages in {0, 1}
 
 
 @dataclass

@@ -18,9 +18,11 @@ windows because Mosaic has no vector gather, and the port's kernel gathers and
 scatters natively on the partition's own blocks, so it has no windows to
 size.
 
-Checks that need the program or the partition (a combiner, float messages,
-edge groups in memory, the store's geometry) stay in the engine: a config
-cannot know them.
+Checks that need the partition or a live object (edge groups in memory, the
+store's geometry, a message log) stay in the engine. The backend is the one
+choice that reads the program: ``finalize(program)`` resolves an unset
+backend from what the program declares (:func:`kernel_refusal`), and
+refuses ``backend="kernel"`` for a program the kernels cannot compute.
 """
 
 from __future__ import annotations
@@ -39,6 +41,27 @@ BACKENDS = ("torch", "kernel")
 
 class ConfigError(ValueError):
     """A config field (or a combination of fields) is invalid."""
+
+
+def kernel_refusal(program) -> str | None:
+    """Why the hand-written kernels cannot compute ``program``, or None when
+    they can. It reads only what the program declares: a ``msg_kind`` that
+    ``kernels/edge_combine.py`` knows and a combiner that both kernels
+    compute (``sum``, ``min`` or ``max``)."""
+    # the kernel modules import torch; a program already did
+    from repro_torch.kernels import digest, edge_combine
+
+    kind, comb = program.msg_kind, program.combiner
+    if kind is None:
+        return "a program.msg_kind (this program has none)"
+    if kind not in edge_combine.MSG_KINDS:
+        return (f"a program.msg_kind in {edge_combine.MSG_KINDS} (this "
+                f"program's is {kind!r})")
+    names = tuple(c for c in edge_combine.COMBINERS if c in digest.COMBINERS)
+    if comb is None or comb.name not in names:
+        got = "none" if comb is None else repr(comb.name)
+        return f"a combiner in {names} (this program's is {got})"
+    return None
 
 
 #: documented ``launch_opts`` surface for ``launch="processes"``. One row per
@@ -298,7 +321,8 @@ class EngineConfig:
 
     mode: str = "recoded"
     #: None resolves in ``finalize()``: "kernel" for ``recoded`` (the one
-    #: mode the kernels serve), "torch" for the others
+    #: mode the kernels serve) when the program is one the kernels compute
+    #: (:func:`kernel_refusal`), "torch" otherwise
     backend: str | None = None
     sparse_cap_frac: float = 0.25  # skip(): max gathered blocks fraction
     adapt_threshold: float = 0.125  # dense->sparse dispatch density
@@ -308,10 +332,13 @@ class EngineConfig:
     recovery: RecoveryConfig = field(default_factory=RecoveryConfig)
 
     # -- validation ----------------------------------------------------------
-    def finalize(self) -> "EngineConfig":
+    def finalize(self, program=None) -> "EngineConfig":
         """Validate every sub-config, then the cross-config invariants.
         Returns the config with its backend resolved (``self`` when it was
-        given)."""
+        given). With a ``program``, an unset backend is "kernel" only for a
+        ``recoded`` program the kernels compute, and ``backend="kernel"``
+        with any other raises; without one, ``recoded`` resolves to
+        "kernel"."""
         if self.mode not in MODES:
             raise ConfigError(
                 f"unknown mode={self.mode!r}; pick one of {MODES}"
@@ -357,9 +384,13 @@ class EngineConfig:
         if self.backend == "kernel" and self.mode != "recoded":
             # this refuses mode='streamed' too: it is host-driven, torch only
             raise ConfigError("backend='kernel' needs mode='recoded'")
+        refusal = None if program is None else kernel_refusal(program)
+        if self.backend == "kernel" and refusal is not None:
+            raise ConfigError(f"backend='kernel' needs {refusal}")
         if self.backend is None:
+            kernel = self.mode == "recoded" and refusal is None
             return dataclasses.replace(
-                self, backend="kernel" if self.mode == "recoded" else "torch")
+                self, backend="kernel" if kernel else "torch")
         return self
 
     # -- serialization -------------------------------------------------------

@@ -844,7 +844,7 @@ class GraphDEngine:
                 "config must be an EngineConfig, got "
                 f"{type(config).__name__}"
             )
-        cfg = (config or EngineConfig()).finalize()
+        cfg = (config or EngineConfig()).finalize(program)
         mode = cfg.mode
         if mode != "streamed" and pg.E_cap > 0 and pg.src_pos.shape[-1] == 0:
             raise ValueError(
@@ -884,8 +884,6 @@ class GraphDEngine:
                 "first-superstep sample; a message log needs a fixed wire "
                 "format — pass 'lossless' (or False) explicitly"
             )
-        if cfg.backend == "kernel" and program.msg_kind is None:
-            raise ValueError("backend='kernel' needs a program.msg_kind")
         if (mode != "streamed" and message_log is not None
                 and program.combiner is None):
             raise ValueError("a message log holds combined buffers: it needs "

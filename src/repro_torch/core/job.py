@@ -197,7 +197,7 @@ class GraphDJob:
                     log_messages=checkpoint_every > 0 and log_ok,
                 ),
             ))
-            plan.config.finalize()
+            plan.config.finalize(program)
         self.plan = plan
         self.budget = plan.budget
         self._tmp = workdir is None

@@ -7,7 +7,9 @@ vertex program, the graph's size and a :class:`MemoryBudget`, runs the
 engine's memory-model algebra *predictively* over every execution mode, and
 returns an :class:`ExecutionPlan`: the chosen mode plus every
 staging/window/fan-in knob derived from the budget. A plan that picks
-``recoded`` runs it on the port's default backend (the kernels).
+``recoded`` runs it on the port's default backend for the program: the
+kernels where they compute it, plain PyTorch otherwise
+(``config.kernel_refusal``).
 
 The algebra (:func:`estimate_memory`) is the SAME function the engine's
 ``memory_model()`` reports after construction, parameterized by estimated
@@ -822,7 +824,7 @@ def plan(
                               full_duplex=bool(k.get("full_duplex", True)),
                               inflight=k.get("inflight", 4)),
         recovery=recovery or RecoveryConfig(),
-    ).finalize()
+    ).finalize(program)
     return ExecutionPlan(
         config=cfg, budget=budget, meta=meta, n_shards=n,
         edge_block=edge_block, vertex_pad=vertex_pad,

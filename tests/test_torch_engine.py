@@ -247,8 +247,12 @@ def test_engine_rejects_programs_it_cannot_run():
     class NoCombiner(tc.PageRank):
         combiner = None
 
+    # by default a program the kernels cannot compute runs on the torch
+    # backend; asked for the kernels, it is refused at construction
+    assert tc.GraphDEngine(tpg, NoKind(), device="cpu").backend == "torch"
     with pytest.raises(ValueError, match="msg_kind"):
-        tc.GraphDEngine(tpg, NoKind(), device="cpu")
+        tc.GraphDEngine(tpg, NoKind(), tc.EngineConfig(backend="kernel"),
+                        device="cpu")
     tc.GraphDEngine(tpg, NoKind(), tc.EngineConfig(backend="torch"),
                     device="cpu")
     with pytest.raises(ValueError, match="combiner"):

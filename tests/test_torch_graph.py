@@ -160,6 +160,8 @@ def test_port_imports_neither_jax_nor_repro():
     nor the JAX package may be loaded by it, directly or transitively."""
     mods = _port_modules()
     assert "repro_torch.core.engine" in mods and "repro_torch.kernels.digest" in mods
+    assert {"repro_torch.examples.quickstart",
+            "repro_torch.examples.graph_analytics"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
